@@ -1,0 +1,183 @@
+"""Streaming host driver: ONE copy of the chunk/pad/concat logic.
+
+  * ``array_chunks`` produces fixed-size, zero-padded
+    (chunk_idx, n_valid, signals) triples from an in-memory array; a
+    streaming ``SignalReader`` (signal/reader.py) yields the same triples;
+  * ``stream_map`` is the double-buffered device loop: chunk i+1 is
+    dispatched to the device *before* chunk i's results are pulled to the
+    host, so host-side reading/padding/serialization overlaps device work;
+  * ``collect`` folds the streamed per-chunk outputs into one MapOutput;
+  * ``ProgressLog`` is the append-only JSONL checkpoint (with periodic
+    compaction) used for resume-after-restart mapping jobs.
+
+Pad rows are masked inside ``map_chunk`` via ``n_valid`` (counters never
+see them) and trimmed from the per-read outputs here.
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+from typing import Callable, Dict, Iterable, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+# (chunk_idx, n_valid, padded signals (chunk, S) f32)
+Chunk = Tuple[int, int, np.ndarray]
+
+
+def pad_rows(part: np.ndarray, chunk: int) -> np.ndarray:
+    """Zero-pad the leading axis to the static chunk size."""
+    if part.shape[0] == chunk:
+        return part
+    pad = np.zeros((chunk - part.shape[0],) + part.shape[1:], part.dtype)
+    return np.concatenate([part, pad])
+
+
+def array_chunks(signals: np.ndarray, chunk: int,
+                 start_chunk: int = 0) -> Iterator[Chunk]:
+    """Fixed-size chunks over an in-memory (R, S) array."""
+    signals = np.asarray(signals, np.float32)
+    n = signals.shape[0]
+    n_chunks = (n + chunk - 1) // chunk
+    for ci in range(start_chunk, n_chunks):
+        part = signals[ci * chunk:(ci + 1) * chunk]
+        yield ci, part.shape[0], pad_rows(part, chunk)
+
+
+def stream_map(map_fn: Callable[[np.ndarray, int], "MapOutput"],
+               chunks: Iterable[Chunk],
+               ) -> Iterator[Tuple[int, int, "MapOutput"]]:
+    """Double-buffered device loop.
+
+    ``map_fn(signals, n_valid)`` enqueues one chunk's device work
+    (``Mapper.chunk_fn``).  The next chunk is dispatched before the previous
+    chunk's results are copied to the host.  Yields (chunk_idx, n_valid,
+    MapOutput) with per-read numpy fields trimmed to ``n_valid`` rows and
+    int counters.
+    """
+    pending = None
+    for ci, n_valid, sig in chunks:
+        out = map_fn(sig, n_valid)
+        if pending is not None:
+            yield _to_host(*pending)
+        pending = (ci, n_valid, out)
+    if pending is not None:
+        yield _to_host(*pending)
+
+
+def _to_host(ci: int, n_valid: int, out) -> Tuple[int, int, "MapOutput"]:
+    """Copy one chunk's outputs to the host in ONE device->host transfer:
+    the per-read fields and the counters packed into a single int32 plane
+    (score travels as its f32 bits)."""
+    from repro_torch.core.pipeline import MapOutput
+    i32 = torch.int32
+    names = list(out.counters)
+    per_read = torch.stack([out.t_start.to(i32), out.score.view(i32),
+                            out.mapped.to(i32), out.n_events.to(i32)])
+    counters = torch.stack([out.counters[k].to(i32).reshape(())
+                            for k in names])
+    flat = torch.cat([per_read[:, :n_valid].reshape(-1), counters])
+    host = flat.cpu().numpy()
+    fields = host[:4 * n_valid].reshape(4, n_valid)
+    return ci, n_valid, MapOutput(
+        t_start=fields[0].copy(), score=fields[1].view(np.float32).copy(),
+        mapped=fields[2].astype(bool), n_events=fields[3].copy(),
+        counters={k: int(v) for k, v in zip(names, host[4 * n_valid:])})
+
+
+def collect(stream: Iterable[Tuple[int, int, "MapOutput"]]) -> "MapOutput":
+    """Fold a stream_map stream into one host MapOutput (concat per-read
+    fields, sum counters).  An empty stream still carries the full
+    zero-valued ``stages.CHUNK_COUNTER_SCHEMA``."""
+    from repro_torch.core.pipeline import MapOutput
+    parts: List = []
+    counters: Dict[str, int] = {}
+    for _, _, out in stream:
+        parts.append(out)
+        for k, v in out.counters.items():
+            counters[k] = counters.get(k, 0) + int(v)
+    if not parts:
+        from repro_torch.core.stages import CHUNK_COUNTER_SCHEMA
+        z = np.zeros(0)
+        return MapOutput(t_start=z.astype(np.int32),
+                         score=z.astype(np.float32),
+                         mapped=z.astype(bool), n_events=z.astype(np.int32),
+                         counters={k: 0 for k in CHUNK_COUNTER_SCHEMA})
+    return MapOutput(
+        t_start=np.concatenate([p.t_start for p in parts]),
+        score=np.concatenate([p.score for p in parts]),
+        mapped=np.concatenate([p.mapped for p in parts]),
+        n_events=np.concatenate([p.n_events for p in parts]),
+        counters=counters)
+
+
+# --------------------------------------------------------------------------- #
+# Resumable progress checkpointing
+# --------------------------------------------------------------------------- #
+class ProgressLog:
+    """Append-only JSONL progress log with periodic compaction.
+
+    Each mapped chunk appends ONE line ``{"next": ci+1, "rows": [...]}``.
+    Every ``compact_every`` lines the log is rewritten as a single
+    consolidated base line (atomic tmp+rename), bounding file size and
+    resume parse time.
+    """
+
+    def __init__(self, path, compact_every: int = 64):
+        self.path = pathlib.Path(path)
+        self.compact_every = compact_every
+        self.rows: List = []
+        self.next_chunk = 0
+        self._lines = 0
+
+    def load(self) -> Tuple[int, List]:
+        """Replay the log.  Returns (next_chunk, rows).  A torn or malformed
+        final line stops the replay there and is truncated away; its chunk is
+        simply remapped."""
+        self.rows, self.next_chunk, self._lines = [], 0, 0
+        if self.path.exists():
+            good = 0                       # bytes of consistent prefix
+            with open(self.path, "rb") as f:
+                for raw in f:
+                    if not raw.endswith(b"\n"):
+                        break              # torn tail (no terminator)
+                    line = raw.decode("utf-8", "replace").strip()
+                    if line:
+                        try:
+                            rec = json.loads(line)
+                        except json.JSONDecodeError:
+                            break
+                        if rec.get("base"):
+                            self.rows = [tuple(r) for r in rec["rows"]]
+                        else:
+                            self.rows.extend(tuple(r) for r in rec["rows"])
+                        self.next_chunk = rec["next"]
+                        self._lines += 1
+                    good += len(raw)
+            if good < self.path.stat().st_size:
+                with open(self.path, "r+b") as f:
+                    f.truncate(good)
+        return self.next_chunk, self.rows
+
+    def append(self, next_chunk: int, rows: List) -> None:
+        rows = [tuple(r) for r in rows]
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"next": next_chunk, "rows": rows}) + "\n")
+        self.rows.extend(rows)
+        self.next_chunk = next_chunk
+        self._lines += 1
+        if self._lines >= self.compact_every:
+            self.compact()
+
+    def compact(self) -> None:
+        tmp = self.path.with_name(self.path.name + ".tmp")
+        tmp.write_text(json.dumps(
+            {"next": self.next_chunk, "rows": self.rows, "base": True}) + "\n")
+        os.replace(tmp, self.path)
+        self._lines = 1
+
+    def clear(self) -> None:
+        self.path.unlink(missing_ok=True)
+        self.rows, self.next_chunk, self._lines = [], 0, 0

@@ -1,0 +1,58 @@
+"""Wrapper of the bitonic row-sort kernel (csrc/bitonic_sort.cu) + its
+stage backend.
+
+Rows are padded with INT32_MAX to ``max(128, next_pow2(L))`` lanes, as the
+reference package's ``sort_batch`` pads them (the kernel pads in shared
+memory), and sorted one CTA per row.
+A padded row longer than ``MAX_BLOCK`` (8192) raises: one row must fit the
+CTA's shared memory, and on the mapping path L <= 4096.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.core import stages
+from repro_torch.kernels.bitonic_sort.ref import sort_rows_ref
+
+MAX_BLOCK = 8192
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def sort_rows(keys: torch.Tensor) -> torch.Tensor:
+    """keys: (N, L) int32 -> each row sorted ascending (the ``sort``
+    primitive of the chaining phase)."""
+    K.check_tensor("bitonic_sort", keys, torch.int32, (None, None))
+    L = keys.shape[1]
+    if max(128, _next_pow2(L)) > MAX_BLOCK:
+        raise ValueError(f"bitonic_sort: rows of {L} keys pad past "
+                         f"{MAX_BLOCK}, more than one CTA's row block")
+    if keys.device.type == "cpu":
+        return sort_rows_ref(keys)
+    return _sort_rows_kernel(keys)
+
+
+def _sort_rows_kernel(keys: torch.Tensor) -> torch.Tensor:
+    """Rows are padded to ``max(128, next_pow2(L))`` lanes inside the
+    kernel's shared memory; only the L real lanes are read and written."""
+    n, L = keys.shape
+    Lp = max(128, _next_pow2(L))
+    keys = keys.contiguous()
+    K.check_cuda("bitonic_sort", keys)
+    out = torch.empty_like(keys)
+    if n and L:
+        from repro_torch.kernels import build
+        err = build.lib().bitonic_sort_rows(
+            keys.data_ptr(), out.data_ptr(), n, L, Lp, K.stream_handle(keys))
+        build.check(err, "bitonic_sort")
+        K.LAUNCHES["bitonic_sort"] += 1
+    return out
+
+
+stages.register_backend("sort", stages.KERNELS, primitive=sort_rows)
