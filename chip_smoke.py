@@ -10,31 +10,47 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build     — compile the CUDA kernels of ``src/repro_torch/csrc`` (nvcc,
                one process per source) and print ptxas's register and
                shared-memory summary;
-3. map       — the main path: end to end through ``Mapper(...,
-               use_kernels=True)`` and the streaming driver at D1 (29,903
-               bases) and D5 (2,000,000 bases), 4096 reads in chunks of 512.
-               Launch counts and the chaining gate's route counts
-               (``pipeline.CHAIN_ROUTES``) are zeroed just before each run
-               and read just after; every kernel must have launched, and the
-               routes each chunk took are printed.  The first chunk's
-               outputs and counters must equal the plain path's on the card;
-               reads/s, F1 and peak device memory are reported;
+3. map       — the main path (``ms_fixed``): end to end through
+               ``Mapper(..., use_kernels=True)`` and the streaming driver at
+               D1 (29,903 bases) and D5 (2,000,000 bases), 4096 reads in
+               chunks of 512.  Launch counts and the chaining gate's route
+               counts (``pipeline.CHAIN_ROUTES``) are zeroed just before
+               each run and read just after; the path's kernels
+               (cheap_fused, bitonic_sort, chain_dp) must have launched and
+               the per-stage ones must not, and the routes each chunk took
+               are printed.  The first chunk's outputs and counters must
+               equal the plain path's on the card; reads/s, F1 and peak
+               device memory are reported;
+   float     — the same runs for the float modes ``ms_float`` and ``rh2``
+               (per-stage cheap phase: the reference detection with the
+               in-order segment_sum helper, the two pluto_lookup gathers,
+               bitonic_sort and chain_dp; cheap_fused and event_detect must
+               not launch); the plain path they are held against
+               launches no kernel (its segment sums are the plain loop);
+               the cheap phase of chunk 0's first 64 reads must equal the
+               same program run on the CPU;
+   perstage  — ``cheap_phase(..., use_fused=False)`` under the kernels plan
+               (event_detect and both lookups) on D1's and D5's first chunk
+               must equal the fused kernel and the reference plan;
 4. routes    — one chunk per route through the chaining gate (full or
                compacted chunk, at the 64 and 128 ladder widths and at the
                full E*H = 3072; a chunk with no anchors), picked by anchor
                count; each must take its route and equal the plain path;
 5. kernels   — each kernel against its plain PyTorch version on the card:
-               cheap_fused on D5's first chunk (512 reads of 1024 samples,
-               E=192 events, H=16 hits), the sort and the DP on the very
-               inputs each route of phase 4 gave them.  Tolerance: exact.
+               cheap_fused and event_detect on D5's first chunk (512 reads
+               of 1024 samples, E=192 events, H=16 hits), the two lookups
+               on the indices D5's query issues for it, segment_sum on its
+               ms_float detection, the sort and the DP on the very inputs
+               each route of phase 4 gave them.  Tolerance: exact.
                Times from warmed CUDA events; ``bound_ms`` is the least time
                the card could take (bytes over 3.35 TB/s, operations over
                67 T/s scalar), from this run's inputs;
-6. profile   — torch.profiler over one streamed pass at each size: device
-               time by kernel, the device's busy share of the wall time,
-               host time by op (traces in ``chiprun_out/``); then the D1 run
-               through the launcher (``repro_torch.launch.map_reads
-               --use-kernels``);
+6. profile   — torch.profiler over one streamed pass at each size (and at
+               D5 in each float mode): device time by kernel, the device's
+               busy share of the wall time, host time by op (traces in
+               ``chiprun_out/``); then the D1 runs through the launcher
+               (``repro_torch.launch.map_reads --use-kernels``, ``ms_fixed``
+               and ``--mode rh2``);
 7. summary   — one JSON line of per-kernel results, then the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +70,13 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 SCALAR_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 READS, CHUNK = 4096, 512
 REPEATS = 5                     # timed passes of each end-to-end run
+SLEEP_CYCLES = 50_000_000       # ~25 ms at the H100's clocks: time_ms's lead
+FLOAT_MODES = ("ms_float", "rh2")
+# The kernels each path launches, and those it must not.
+FUSED_PATH = ("cheap_fused", "bitonic_sort", "chain_dp")
+FLOAT_PATH = ("pluto_lookup", "pluto_lookup_rows", "segment_sum",
+              "bitonic_sort", "chain_dp")
+PERSTAGE_PATH = ("event_detect", "pluto_lookup", "pluto_lookup_rows")
 
 
 def log(msg: str) -> None:
@@ -61,18 +84,36 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean time of one call over ``reps`` warmed calls, by CUDA events."""
+    """Mean device time of one call over ``reps`` warmed calls, by CUDA
+    events.  A sleep kernel holds the stream while the host enqueues the
+    calls, so a call whose host side (wrapper, launch) outlasts its kernel
+    is still timed back to back on the device; a plain version whose host
+    work outlasts the sleep is timed as the host paces it."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean host-clock time of one call over ``reps`` warmed calls, ended
+    by a synchronisation (host dispatch included)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -93,6 +134,27 @@ def assert_equal(name: str, got, want) -> float:
         raise AssertionError(f"{name}: {int((got != want).sum())} elements "
                              f"differ, max abs diff {float(diff.max())}")
     return 0.0
+
+
+def check_launches(label: str, launches, expected) -> None:
+    """Every kernel of ``expected`` launched, every other kernel did not."""
+    missing = [k for k in expected if launches[k] == 0]
+    extra = [k for k, v in launches.items() if v and k not in expected]
+    if missing or extra:
+        raise AssertionError(f"{label}: kernels never launched {missing}, "
+                             f"launched off their path {extra} "
+                             f"({launches})")
+
+
+def equal_cheap(label: str, got, want) -> None:
+    """Exact equality of two cheap-phase results (q_pos, t_pos, hit_valid,
+    counters)."""
+    for n, g, w in zip(("q_pos", "t_pos", "hit_valid"), got[:3], want[:3]):
+        assert_equal(f"{label} {n}", g, w)
+    if set(got[3]) != set(want[3]):
+        raise AssertionError(f"{label}: counter keys differ")
+    for k in want[3]:
+        assert_equal(f"{label} counter {k}", got[3][k], want[3][k])
 
 
 def phase_device():
@@ -370,8 +432,9 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
     return results
 
 
-def run_map(key, cfg, ref, reads, index, dev):
-    """One end-to-end run through Mapper + the streaming driver."""
+def run_map(key, cfg, ref, reads, index, dev, expected=FUSED_PATH):
+    """One end-to-end run through Mapper + the streaming driver; the
+    kernels of ``expected`` must launch and no other."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -405,10 +468,8 @@ def run_map(key, cfg, ref, reads, index, dev):
         walls.append(time.time() - t0)
     K.reset_launches()
     dt = sorted(walls)[len(walls) // 2]
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"{key}: kernels never launched on the mapping "
-                             f"path: {missing} ({launches})")
+    label = f"{key} {cfg.mode}"
+    check_launches(label, launches, expected)
     if sum(routes.values()) != READS // CHUNK:
         raise AssertionError(f"{key}: chain routes {routes} do not cover "
                              f"{READS // CHUNK} chunks")
@@ -420,20 +481,25 @@ def run_map(key, cfg, ref, reads, index, dev):
     # the first chunk against the plain path, on the card
     x = torch.from_numpy(sig[:CHUNK]).to(dev)
     got = map_chunk(x, mapper.arrays, cfg, use_kernels=True)
+    torch.cuda.synchronize()
+    K.reset_launches()
     want = map_chunk(x, mapper.arrays, cfg, use_kernels=False)
     torch.cuda.synchronize()
+    check_launches(f"{label} plain path", K.LAUNCHES, ())
     for f in ("t_start", "score", "mapped", "n_events"):
-        assert_equal(f"{key} chunk 0 {f}", getattr(got, f), getattr(want, f))
+        assert_equal(f"{label} chunk 0 {f}", getattr(got, f),
+                     getattr(want, f))
     if set(got.counters) != set(want.counters):
-        raise AssertionError(f"{key}: counter keys differ")
+        raise AssertionError(f"{label}: counter keys differ")
     for k in want.counters:
-        assert_equal(f"{key} chunk 0 counter {k}", got.counters[k],
+        assert_equal(f"{label} chunk 0 counter {k}", got.counters[k],
                      want.counters[k])
     if not torch.equal(got.t_start.cpu(),
                        torch.from_numpy(out.t_start[:CHUNK])):
-        raise AssertionError(f"{key}: streamed chunk 0 differs from a "
+        raise AssertionError(f"{label}: streamed chunk 0 differs from a "
                              "direct map_chunk")
-    res = dict(reads=READS, chunk=CHUNK, seconds=dt, walls=walls,
+    res = dict(mode=cfg.mode, reads=READS, chunk=CHUNK, seconds=dt,
+               walls=walls,
                reads_per_s=READS / dt,
                precision=acc["precision"], recall=acc["recall"],
                f1=acc["f1"], max_memory_allocated=peak, launches=launches,
@@ -441,15 +507,194 @@ def run_map(key, cfg, ref, reads, index, dev):
                              for (b, r, w), n in sorted(routes.items())},
                route_keys=sorted(routes),
                counters=out.counters)
-    log(f"[map] {key}: {READS} reads in {dt:.4f}s (median of "
+    log(f"[map] {label}: {READS} reads in {dt:.4f}s (median of "
         f"{[round(w, 4) for w in walls]} s) "
         f"({READS / dt:.1f} reads/s), P={acc['precision']:.3f} "
         f"R={acc['recall']:.3f} "
         f"F1={acc['f1']:.3f}, peak {peak / 1e6:.1f} MB, launches {launches};"
         f" chunk 0 equals the plain path")
-    log(f"[map] {key}: chain routes (branch/rows x sort width: chunks) "
+    log(f"[map] {label}: chain routes (branch/rows x sort width: chunks) "
         f"{res['chain_routes']}")
     return res
+
+
+def phase_float(data, dev):
+    """The float modes end to end (``run_map``), and the cheap phase of
+    chunk 0's first 64 reads on the card against the same program on the
+    CPU (the f32 evaluation order must not depend on the device)."""
+    import torch
+    from repro_torch.core import pipeline, stages
+    from repro_torch.core.index import index_arrays
+    out = {}
+    for mode in FLOAT_MODES:
+        for key in ("D1", "D5"):
+            cfg, ref, reads, index = data[key]
+            cfg_m = cfg.with_mode(mode)
+            res = run_map(key, cfg_m, ref, reads, index, dev,
+                          expected=FLOAT_PATH)
+            plan = stages.resolve_plan(cfg_m, stages.KERNELS)
+            x = torch.from_numpy(reads.signals[:64])
+            got = pipeline.cheap_phase(x.to(dev), index_arrays(index, dev),
+                                       cfg_m, plan)
+            want = pipeline.cheap_phase(x, index_arrays(index, "cpu"),
+                                        cfg_m, plan)
+            equal_cheap(f"{key} {mode} card vs CPU",
+                        [g.cpu() for g in got[:3]]
+                        + [{k: v.cpu() for k, v in got[3].items()}], want)
+            log(f"[float] {key} {mode}: the cheap phase of 64 reads on the "
+                f"card equals the CPU's ({int(want[3]['n_events'].sum())} "
+                f"events, {int(want[3]['n_anchors_postvote'].sum())} "
+                f"anchors)")
+            out[f"{key} {mode}"] = res
+    return out
+
+
+def phase_perstage(data, dev):
+    """``cheap_phase(..., use_fused=False)`` under the kernels plan on each
+    dataset's first chunk: event_detect and both lookups launch (counts
+    zeroed just before, read just after), and the result equals the fused
+    kernel's and the reference plan's.  Both levels are timed."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import pipeline, stages
+    from repro_torch.core.index import index_arrays
+    out = {}
+    for key in ("D1", "D5"):
+        cfg, _, reads, index = data[key]
+        arrays = index_arrays(index, dev)
+        x = torch.from_numpy(reads.signals[:CHUNK]).to(dev)
+        plan = stages.resolve_plan(cfg, stages.KERNELS)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = pipeline.cheap_phase(x, arrays, cfg, plan, use_fused=False)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        check_launches(f"{key} per-stage", launches, PERSTAGE_PATH)
+        fused = pipeline.cheap_phase(x, arrays, cfg, plan)
+        ref = pipeline.cheap_phase(x, arrays, cfg, stages.resolve_plan(
+            cfg, stages.REFERENCE))
+        torch.cuda.synchronize()
+        equal_cheap(f"{key} per-stage vs fused", got, fused)
+        equal_cheap(f"{key} per-stage vs reference plan", got, ref)
+        ms = wall_ms(lambda: pipeline.cheap_phase(x, arrays, cfg, plan,
+                                                  use_fused=False), 10)
+        fused_ms = wall_ms(lambda: pipeline.cheap_phase(x, arrays, cfg,
+                                                        plan), 10)
+        K.reset_launches()
+        out[key] = dict(launches=launches, perstage_ms=ms, fused_ms=fused_ms)
+        log(f"[perstage] {key}: use_fused=False launches {launches}; equals "
+            f"the fused kernel and the reference plan; wall per chunk of "
+            f"{CHUNK}: per-stage {ms:.3f} ms, fused {fused_ms:.3f} ms")
+    return out
+
+
+def phase_new_kernels(cfg, reads, index, dev):
+    """event_detect, the two lookups and the segment_sum helper against
+    their plain versions on D5's first chunk, timed with their bounds and
+    the library call that computes the same function."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import events, hashing, quantization, seeding
+    from repro_torch.core.index import index_arrays
+    from repro_torch.kernels.event_detect import ops as ed_ops
+    from repro_torch.kernels.event_detect.ref import event_detect_rows_ref
+    from repro_torch.kernels.pluto_lookup import ops as pl_ops
+    from repro_torch.kernels.pluto_lookup.ref import lookup_ref
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+
+    arrays = index_arrays(index, dev)
+    bs, ent = arrays["bucket_start"], arrays["entries_packed"]
+    R, E, H = CHUNK, cfg.max_events, cfg.max_hits_per_seed
+    xq = events.early_quantize(torch.from_numpy(reads.signals[:R]).to(dev),
+                               cfg)
+    S = xq.shape[1]
+    results = {}
+
+    # ---- event_detect -----------------------------------------------------
+    got = ed_ops.event_detect_rows(xq, cfg)
+    want = event_detect_rows_ref(xq, cfg)
+    torch.cuda.synchronize()
+    err = max(assert_equal(f"event_detect {n}", g, w)
+              for n, g, w in zip(("means", "n_events"), got, want))
+    k_ms = time_ms(lambda: ed_ops.event_detect_rows(xq, cfg), 20)
+    p_ms = time_ms(lambda: event_detect_rows_ref(xq, cfg), 5)
+    b_ms, b_by = bound(4 * R * S + 4 * R * E + 4 * R,
+                       R * (S * (4 * cfg.tstat_window + 16
+                                 + 4 * cfg.peak_window) + 2 * E))
+    results["event_detect"] = dict(
+        shape=f"D5 chunk 0: xq ({R}, {S}) int32 -> means ({R}, {E})",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    log(f"[kernels] event_detect equal; kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
+
+    # ---- the two lookups, on the indices D5's query issues ----------------
+    means, nev = want
+    valid = torch.arange(E, device=dev) < nev.unsqueeze(-1)
+    keys, _ = hashing.pack_seeds(quantization.quantize_events(means, valid,
+                                                              cfg), nev, cfg)
+    bucket = (keys & (cfg.n_buckets - 1)).to(torch.int32)
+    bidx = torch.stack([bucket, bucket + 1])
+    start = seeding._take_clip(bs, bidx)[0]
+    idx = torch.clamp(start.unsqueeze(-1)
+                      + torch.arange(H, dtype=torch.int32, device=dev),
+                      max=ent.shape[1] - 1)
+    for name, table, i in (("pluto_lookup", bs, bidx),
+                           ("pluto_lookup_rows", ent, idx)):
+        got = pl_ops.lookup(table, i)
+        want_l = lookup_ref(table, i)
+        torch.cuda.synchronize()
+        err = assert_equal(name, got, want_l)
+        flat = i.reshape(-1).contiguous()
+        W = table.shape[0] if table.ndim == 2 else 1
+        Q = flat.numel()
+        n_words = torch.unique(flat).numel()
+        k_ms = time_ms(lambda: pl_ops.lookup(table, i), 20)
+        p_ms = time_ms(lambda: lookup_ref(table, i), 20)
+        if table.ndim == 1:
+            flat64 = flat.to(torch.int64)      # take wants int64 indices
+            l_ms = time_ms(lambda: torch.take(table, flat64), 20)
+            lib = "torch.take"
+        else:
+            l_ms = time_ms(lambda: table.index_select(1, flat), 20)
+            lib = "index_select"
+        b_ms, b_by = bound(4 * Q + 4 * W * Q + 4 * W * n_words, 3 * Q)
+        results[name] = dict(
+            shape=f"D5 chunk 0: table {tuple(table.shape)}, {Q} indices "
+                  f"({n_words} distinct)", max_abs_err=err, ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+            library=lib)
+        log(f"[kernels] {name} equal; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, {lib} {l_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})")
+
+    # ---- segment_sum, on D5 chunk 0's ms_float detection ------------------
+    cfg_f = cfg.with_mode("ms_float")
+    x = events.dequantize_fixed(xq, cfg.frac_bits)
+    eid = events._event_ids(events.boundary_mask_float(x, cfg_f), E)
+    got = ss_ops.segment_sum(x, eid, E, S)
+    want_s = segment_sum_ref(x, eid, E, S)
+    torch.cuda.synchronize()
+    err = max(assert_equal(f"segment_sum {n}", g, w)
+              for n, g, w in zip(("sums", "counts"), got, want_s))
+    k_ms = time_ms(lambda: ss_ops.segment_sum(x, eid, E, S), 20)
+    p_ms = time_ms(lambda: segment_sum_ref(x, eid, E, S), 2)
+    flat_e = (eid + E * torch.arange(R, device=dev, dtype=torch.int32)[
+        :, None]).reshape(-1)
+    flat_x = x.reshape(-1)
+    l_ms = time_ms(lambda: torch.zeros(R * E, device=dev).index_add_(
+        0, flat_e, flat_x), 20)
+    b_ms, b_by = bound(8 * R * S + 8 * R * E, 2 * R * S)
+    results["segment_sum"] = dict(
+        shape=f"D5 chunk 0 (ms_float): x ({R}, {S}) f32 -> ({R}, {E})",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=l_ms, library="index_add_ (atomic order)")
+    log(f"[kernels] segment_sum equal; kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.3f} ms, index_add_ {l_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by})")
+    K.reset_launches()
+    return results
 
 
 def phase_profile(key, cfg, ref, reads, index, dev):
@@ -483,7 +728,8 @@ def phase_profile(key, cfg, ref, reads, index, dev):
     calls = {e.key: e.count for e in ev}
     syncs = calls.get("cudaStreamSynchronize", 0)
     launches = calls.get("cudaLaunchKernel", 0)
-    log(f"[profile] {key}: wall {wall * 1e3:.3f} ms under the profiler, "
+    log(f"[profile] {key} {cfg.mode}: wall {wall * 1e3:.3f} ms under the "
+        f"profiler, "
         f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), "
         f"{syncs} stream syncs and {launches} kernel launches for "
         f"{READS // CHUNK} chunks")
@@ -497,27 +743,34 @@ def phase_profile(key, cfg, ref, reads, index, dev):
             f"x{e.count:<5} {e.key[:90]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / f"trace_{key}.json"))
+    prof.export_chrome_trace(str(out / f"trace_{key}_{cfg.mode}.json"))
     return dict(wall_s=wall, device_busy_s=busy, stream_syncs=syncs,
                 kernel_launches=launches)
 
 
 def phase_launcher():
-    """The D1 run through the launcher's own entry point."""
+    """The D1 runs through the launcher's own entry point: ``ms_fixed``
+    (the fused path) and ``--mode rh2`` (the per-stage float path)."""
     from repro_torch import kernels as K
     from repro_torch.launch import map_reads
-    wd = ROOT / "chiprun_out" / "smoke_map_reads"
+    out = {}
+    for mode, expected, min_f1 in (("ms_fixed", FUSED_PATH, 0.85),
+                                   ("rh2", FLOAT_PATH, 0.0)):
+        wd = ROOT / "chiprun_out" / f"smoke_map_reads_{mode}"
+        K.reset_launches()
+        acc = map_reads.main(["--dataset", "D1", "--reads", str(READS),
+                              "--chunk", str(CHUNK), "--use-kernels",
+                              "--mode", mode, "--workdir", str(wd),
+                              "--out", str(wd / "D1.paf")])
+        launches = dict(K.LAUNCHES)
+        check_launches(f"launcher {mode}", launches, expected)
+        if acc["f1"] < min_f1:
+            raise AssertionError(f"launcher: D1 {mode} F1 {acc['f1']:.3f} "
+                                 f"< {min_f1}")
+        log(f"[launcher] D1 {mode} F1 {acc['f1']:.3f}, launches {launches}")
+        out[mode] = dict(f1=acc["f1"], launches=launches)
     K.reset_launches()
-    acc = map_reads.main(["--dataset", "D1", "--reads", str(READS),
-                          "--chunk", str(CHUNK), "--use-kernels",
-                          "--workdir", str(wd), "--out", str(wd / "D1.paf")])
-    launches = dict(K.LAUNCHES)
-    if not all(launches.values()):
-        raise AssertionError(f"launcher: kernels never launched {launches}")
-    if acc["f1"] < 0.85:
-        raise AssertionError(f"launcher: D1 F1 {acc['f1']:.3f} < 0.85")
-    log(f"[launcher] D1 launches {launches}")
-    return launches
+    return out
 
 
 def main() -> int:
@@ -537,43 +790,78 @@ def main() -> int:
     phase_build()
     data = {k: make_dataset(k) for k in ("D1", "D5")}
     maps = {k: run_map(k, *data[k], dev) for k in ("D1", "D5")}
+    floats = phase_float(data, dev)
+    perstage = phase_perstage(data, dev)
     main_routes = {(k, b, w) for k in maps
                    for (b, _, w) in maps[k]["route_keys"]}
     inputs, routes = phase_routes(data, dev)
     kern = phase_kernels(*[data["D5"][i] for i in (0, 2, 3)], inputs,
                          main_routes, dev)
+    kern.update(phase_new_kernels(*[data["D5"][i] for i in (0, 2, 3)], dev))
     for k in maps:
         maps[k]["profile"] = phase_profile(k, *data[k], dev)
-    phase_launcher()
+    for mode in FLOAT_MODES:
+        cfg, ref, reads, index = data["D5"]
+        floats[f"D5 {mode}"]["profile"] = phase_profile(
+            "D5", cfg.with_mode(mode), ref, reads, index, dev)
+    launcher = phase_launcher()
 
-    sources = {"cheap_fused": ("src/repro_torch/csrc/cheap_fused.cu",
-                               "src/repro/kernels/cheap_fused/cheap_fused.py:367"),
-               "bitonic_sort": ("src/repro_torch/csrc/bitonic_sort.cu",
-                                "src/repro/kernels/bitonic_sort/bitonic_sort.py:64"),
-               "chain_dp": ("src/repro_torch/csrc/chain_dp.cu",
-                            "src/repro/kernels/chain_dp/chain_dp.py:89")}
+    # name: (source, the TPU kernel it replaces, the run whose launches
+    # count: the main path that drives it)
+    runs = {**{f"{d} ms_fixed": maps[d]["launches"] for d in maps},
+            **{k: v["launches"] for k, v in floats.items()},
+            **{f"{d} per-stage": v["launches"] for d, v in perstage.items()}}
+    sources = {
+        "cheap_fused": ("src/repro_torch/csrc/cheap_fused.cu",
+                        "src/repro/kernels/cheap_fused/cheap_fused.py:367",
+                        "D5 ms_fixed"),
+        "bitonic_sort": ("src/repro_torch/csrc/bitonic_sort.cu",
+                         "src/repro/kernels/bitonic_sort/bitonic_sort.py:64",
+                         "D5 ms_fixed"),
+        "chain_dp": ("src/repro_torch/csrc/chain_dp.cu",
+                     "src/repro/kernels/chain_dp/chain_dp.py:89",
+                     "D5 ms_fixed"),
+        "event_detect": ("src/repro_torch/csrc/event_detect.cu",
+                         "src/repro/kernels/event_detect/event_detect.py:124",
+                         "D5 per-stage"),
+        "pluto_lookup_rows": (
+            "src/repro_torch/csrc/pluto_lookup.cu",
+            "src/repro/kernels/pluto_lookup/pluto_lookup.py:97",
+            "D5 ms_float"),
+        "pluto_lookup": ("src/repro_torch/csrc/pluto_lookup.cu",
+                         "src/repro/kernels/pluto_lookup/pluto_lookup.py:125",
+                         "D5 ms_float"),
+        # a helper of the float detection, not the port of a TPU kernel:
+        # it stands for the reference's jax.ops.segment_sum
+        "segment_sum": ("src/repro_torch/csrc/segment_sum.cu",
+                        "src/repro/core/events.py:301", "D5 ms_float"),
+    }
     summary = []
-    for k, (src, rep) in sources.items():
+    for k, (src, rep, run) in sources.items():
         r = kern[k]
         summary.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
-            launches=maps["D5"]["launches"][k],
-            launches_by_run={d: maps[d]["launches"][k] for d in maps},
+            launches=runs[run][k], launches_run=run,
+            launches_by_run={n: v[k] for n, v in runs.items()},
             equal=True, max_abs_err=r["max_abs_err"], ms=r["ms"],
             kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"],
-            by_shape=r.get("by_shape")))
+            library_ms=r["library_ms"], library=r.get("library"),
+            shape=r["shape"], by_shape=r.get("by_shape"),
+            helper=k == "segment_sum"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(device=name, nvidia_smi=smi, kernels=summary, map=maps,
+             float=floats, perstage=perstage, launcher=launcher,
              routes=routes, seconds=time.time() - t_all), indent=1,
         default=str))
     log(f"[map-summary] " + json.dumps(
-        {d: {k: maps[d][k] for k in ("reads_per_s", "f1",
+        {name_: {k: res[k] for k in ("reads_per_s", "f1",
                                      "max_memory_allocated")}
-         for d in maps}))
+         for name_, res in [*((f"{d} ms_fixed", maps[d]) for d in maps),
+                            *floats.items()]}))
+    log(f"[seconds] {time.time() - t_all:.1f}")
     log(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

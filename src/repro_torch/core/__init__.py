@@ -1,4 +1,4 @@
-"""MARS core in PyTorch: the fixed-point mapping path.
+"""MARS core in PyTorch: the mapping path in all three modes.
 
 Public API:
     MarsConfig            static pipeline configuration

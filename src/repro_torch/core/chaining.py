@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.config import MarsConfig
+from repro_torch.core.f32order import fma_f32
 from repro_torch.core.index import T_BITS, _Q_BITS  # noqa: F401 (T_BITS re-export)
 
 NEG = -1e9
@@ -47,27 +48,6 @@ class ChainResult(NamedTuple):
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=like.device)
-
-
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """IEEE fused multiply-add on f32 tensors: round_f32(a + b*c) with ONE
-    rounding (C ``fmaf``; ``__fmaf_rn`` in the CUDA kernel).
-
-    The product of two f32 values is exact in f64; the f64 sum is taken
-    with round-to-odd (Knuth's TwoSum gives the exact error, and an inexact
-    sum with an even last bit steps one ulp toward it), which makes the
-    final rounding to f32 the correctly rounded fused result.
-    """
-    a64 = a.to(torch.float64)
-    p = b.to(torch.float64) * c.to(torch.float64)
-    s = a64 + p
-    bb = s - a64
-    err = (a64 - (s - bb)) + (p - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    inf = torch.full_like(s, float("inf"))
-    toward = torch.nextafter(s, torch.where(err > 0, inf, -inf))
-    s = torch.where((err != 0) & even, toward, s)
-    return s.to(torch.float32)
 
 
 # --------------------------------------------------------------------------- #

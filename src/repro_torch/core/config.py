@@ -94,9 +94,9 @@ class MarsConfig:
         novelty is the freq+vote COMBINATION plus early quantization), but
         no seed-and-vote, float arithmetic, late quantization.
 
-        All three modes are kept; only ``ms_fixed`` runs in this package so
-        far — the float modes raise ``NotImplementedError`` in the cheap
-        phase (core/events.py, core/quantization.py)."""
+        All three modes run in this package: ``ms_fixed`` through the fused
+        cheap-phase kernel under the kernels plan, the float modes through
+        the per-stage cheap phase (core/events.py, core/quantization.py)."""
         if mode == MODE_RH2:
             return dataclasses.replace(
                 self, mode=mode, early_quantization=False, fixed_point=False,

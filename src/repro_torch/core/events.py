@@ -1,23 +1,33 @@
-"""Signal-to-event conversion (event detection), fixed-point path.
+"""Signal-to-event conversion (event detection).
 
-The MARS arithmetic (paper Section 5.2): the raw signal is robust-
-normalized, quantized EARLY to a Q-format integer signal, and segmented with
-a sqrt-free integer two-sample t-statistic test, a local-max peak pick and
-integer segment sums.  Every function works on a batch of reads (R, S).
+The two-sample t-statistic segmentation of RawHash2, with the reference
+package's three arithmetic paths, one per mode:
 
-Only the fixed-point branch exists in this package so far; the float
-branches (``ms_float`` / ``rh2``) raise ``NotImplementedError``.
+* ``ms_fixed`` (MARS, paper Section 5.2): the raw signal is robust-
+  normalized, quantized EARLY to a Q-format integer signal, and segmented
+  with a sqrt-free integer boundary test, a local-max peak pick and integer
+  segment sums;
+* ``ms_float``: the same early quantization, dequantized back to f32, then
+  the float boundary test;
+* ``rh2`` (the RawHash2 baseline): the float boundary test on the
+  normalized signal.
+
+Every function works on a batch of reads (R, S).
 
 Exactness notes (the results equal the reference package bit for bit):
 ``robust_normalize`` interpolates the median as ``lo*0.5 + hi*0.5``; the
 rounding of ``quantize_signal_fixed`` is half-to-even (``torch.round``);
-prefix sums run in int64 so no window sum wraps; the segment sums are
-exact integers converted to f32 once.
+integer prefix sums run in int64 so no window sum wraps; the integer
+segment sums are exact and converted to f32 once.  The float path follows
+the reference's compiled CPU arithmetic operation for operation
+(core/f32order.py): XLA's order for the f32 prefix sums, its rsqrt and its
+fused multiply-adds, and segment sums added in sample order.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import f32order
 from repro_torch.core.config import MarsConfig
 
 _EPS = 1e-6
@@ -67,7 +77,9 @@ def robust_normalize(signal: torch.Tensor) -> torch.Tensor:
                 + torch.where(rb == k, dev_hi, zero).sum(-1, keepdim=True))
 
     mad = at(m1) * half + at(m2) * half
-    scale = _f32(1.4826, signal) * mad + _f32(_EPS, signal)
+    # the reference's compiled chunk program contracts 1.4826*mad + eps
+    # into one fused multiply-add
+    scale = f32order.fma_f32(_f32(_EPS, signal), mad, _f32(1.4826, signal))
     return (signal - med) / scale
 
 
@@ -79,9 +91,20 @@ def quantize_signal_fixed(signal_norm: torch.Tensor, frac_bits: int,
     return torch.round(scaled).to(torch.int16)
 
 
+def dequantize_fixed(x: torch.Tensor, frac_bits: int) -> torch.Tensor:
+    """Q-format int -> f32 normalized units (a multiplication by 2^-f, as
+    XLA compiles the reference's division by the constant 2^f)."""
+    return x.to(torch.float32) * _f32(1.0 / (1 << frac_bits), x)
+
+
 # --------------------------------------------------------------------------- #
 # t-statistic boundary detection
 # --------------------------------------------------------------------------- #
+def _window_index(S: int, w: int, device):
+    idx = torch.arange(S, device=device)
+    return idx, torch.clamp(idx - w, min=0), torch.clamp(idx + w, max=S)
+
+
 def _windowed_sums(x: torch.Tensor, w: int):
     """Left/right window sums of x and x^2 at each position.
 
@@ -96,15 +119,50 @@ def _windowed_sums(x: torch.Tensor, w: int):
     zero = torch.zeros((R, 1), dtype=torch.int64, device=x.device)
     c = torch.cat([zero, torch.cumsum(x64, dim=1)], dim=1)        # (R, S+1)
     c2 = torch.cat([zero, torch.cumsum(x64 * x64, dim=1)], dim=1)
-    idx = torch.arange(S, device=x.device)
-    lo = torch.clamp(idx - w, min=0)
-    hi = torch.clamp(idx + w, max=S)
+    idx, lo, hi = _window_index(S, w, x.device)
     i32 = torch.int32
     sum_l = (c[:, idx] - c[:, lo]).to(i32)
     sum_r = (c[:, hi] - c[:, idx]).to(i32)
     sq_l = (c2[:, idx] - c2[:, lo]).to(i32)
     sq_r = (c2[:, hi] - c2[:, idx]).to(i32)
     return sum_l, sum_r, sq_l, sq_r
+
+
+def _windowed_sums_float(x: torch.Tensor, w: int):
+    """``_windowed_sums`` of an f32 signal: differences of the f32 prefix
+    sums of x and x*x, each taken in the reference's order
+    (``f32order.prefix_sum``)."""
+    R, S = x.shape
+    zero = torch.zeros((R, 1), dtype=torch.float32, device=x.device)
+    c = torch.cat([zero, f32order.prefix_sum(x)], dim=1)          # (R, S+1)
+    c2 = torch.cat([zero, f32order.prefix_sum(x * x)], dim=1)
+    idx, lo, hi = _window_index(S, w, x.device)
+    return (c[:, idx] - c[:, lo], c[:, hi] - c[:, idx],
+            c2[:, idx] - c2[:, lo], c2[:, hi] - c2[:, idx])
+
+
+def tstat_float(x: torch.Tensor, w: int) -> torch.Tensor:
+    """|mean_r - mean_l| / sqrt(var_l/w + var_r/w + eps) over (R, S) f32,
+    as the reference's compiled code evaluates it: the divisions by w are
+    multiplications by f32(1/w), ``sq/w - mean^2`` and ``v/w + eps`` are
+    fused multiply-adds, and the division by the square root is a
+    multiplication by ``f32order.rsqrt``."""
+    sum_l, sum_r, sq_l, sq_r = _windowed_sums_float(x, w)
+    inv_w = _f32(1.0, x) / w
+    mean_l, mean_r = sum_l * inv_w, sum_r * inv_w
+    zero = _f32(0.0, x)
+    var_l = torch.maximum(f32order.fma_f32(-(mean_l * mean_l), sq_l, inv_w),
+                          zero)
+    var_r = torch.maximum(f32order.fma_f32(-(mean_r * mean_r), sq_r, inv_w),
+                          zero)
+    denom = f32order.fma_f32(_f32(_EPS, x), var_l + var_r, inv_w)
+    return torch.abs(mean_r - mean_l) * f32order.rsqrt(denom)
+
+
+def boundary_mask_float(x: torch.Tensor, cfg: MarsConfig) -> torch.Tensor:
+    """Peak-picked boundary mask (R, S) bool, float path."""
+    t = tstat_float(x, cfg.tstat_window)
+    return _peak_pick(t, t > _f32(cfg.tstat_threshold, t), cfg)
 
 
 def fixed_tstat_bounds(cfg: MarsConfig):
@@ -204,8 +262,28 @@ def _peak_pick(score: torch.Tensor, above: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # Segment means
 # --------------------------------------------------------------------------- #
+def segment_sum_in_order(x: torch.Tensor, eid: torch.Tensor, n_seg: int,
+                         valid_len: int):
+    """The segment sums of the float event means, as the reference's
+    ``jax.ops.segment_sum`` (XLA's CPU scatter) adds them: one sample per
+    row at a time, so each sum is ((0 + x[a]) + x[b]) + ... in sample order.
+    x: (R, S) f32; eid: (R, S) int32 in [0, n_seg).  Returns (sums
+    (R, n_seg) f32, counts (R, n_seg) f32) over the samples i < valid_len.
+    The kernels plan swaps in the ``segment_sum`` kernel
+    (``stages.register_segment_sum``)."""
+    R = x.shape[0]
+    idx = eid[:, :valid_len].to(torch.int64)
+    sums = torch.zeros((R, n_seg), dtype=torch.float32, device=x.device)
+    for i in range(valid_len):
+        sums.scatter_add_(1, idx[:, i:i + 1], x[:, i:i + 1])
+    cnts = torch.zeros((R, n_seg), dtype=torch.float32, device=x.device)
+    cnts.scatter_add_(1, idx, torch.ones_like(x[:, :valid_len]))
+    return sums, cnts
+
+
 def segment_means(x: torch.Tensor, boundaries: torch.Tensor, valid_len: int,
-                  max_events: int, max_abs: int = None):
+                  max_events: int, max_abs: int = None,
+                  segment_sum=segment_sum_in_order):
     """Per-event means of an integer signal.  x: (R, S) int, boundaries:
     (R, S) bool.  Returns (means (R, E) f32, n_events (R,) int32, counts
     (R, E) f32).
@@ -215,20 +293,19 @@ def segment_means(x: torch.Tensor, boundaries: torch.Tensor, valid_len: int,
     ``max_abs`` certifies the amplitude bound under which the reference's
     f32 prefix sums are exact too (S * max_abs < 2^24), so
     means = f32(sum) / max(f32(count), 1) is the reference's value bit for
-    bit.  Float signals are not ported.
+    bit.  A float signal, or one without that bound, takes
+    ``segment_means_reference`` (its sums from ``segment_sum``), as in the
+    reference package.
     """
     if (x.dtype.is_floating_point or max_abs is None
             or x.shape[-1] * max_abs >= (1 << 24)):
-        raise NotImplementedError(
-            "segment_means takes an integer signal with a certified "
-            "amplitude bound (S * max_abs < 2^24); the float path is not "
-            "ported")
+        return segment_means_reference(x, boundaries, valid_len, max_events,
+                                       segment_sum)
     R, S = x.shape
     E = max_events
     dev = x.device
     sample_valid = torch.arange(S, device=dev) < valid_len
-    eid = torch.cumsum(boundaries.to(torch.int32), dim=1, dtype=torch.int32)
-    eid = torch.clamp(eid, max=E - 1)
+    eid = _event_ids(boundaries, E)
     seg = torch.where(sample_valid, eid, torch.full_like(eid, E))
     xv = torch.where(sample_valid, x.to(torch.int64),
                      torch.zeros((), dtype=torch.int64, device=dev))
@@ -240,17 +317,44 @@ def segment_means(x: torch.Tensor, boundaries: torch.Tensor, valid_len: int,
     sums_f = sums[:, :E].to(torch.float32)
     cnts_f = cnts[:, :E].to(torch.float32)
     means = sums_f / torch.clamp(cnts_f, min=1.0)
-    n_events = torch.clamp(eid[:, valid_len - 1] + 1, max=E).to(torch.int32)
-    return means, n_events, cnts_f
+    return means, _n_events(eid, valid_len, E), cnts_f
+
+
+def _event_ids(boundaries: torch.Tensor, E: int) -> torch.Tensor:
+    """Event id of each sample: the inclusive count of boundaries, clipped
+    to E-1.  (R, S) int32."""
+    eid = torch.cumsum(boundaries.to(torch.int32), dim=1, dtype=torch.int32)
+    return torch.clamp(eid, max=E - 1)
+
+
+def _n_events(eid: torch.Tensor, valid_len: int, E: int) -> torch.Tensor:
+    return torch.clamp(eid[:, valid_len - 1] + 1, max=E).to(torch.int32)
+
+
+def segment_means_reference(x: torch.Tensor, boundaries: torch.Tensor,
+                            valid_len: int, max_events: int,
+                            segment_sum=segment_sum_in_order):
+    """``segment_means`` of any signal as the reference's two
+    ``segment_sum`` scatters compute it: each event's f32 sum adds its
+    samples in sample order, starting from 0.  ``segment_sum`` has
+    ``segment_sum_in_order``'s contract (torch's own scatters on the card
+    add in no fixed order)."""
+    E = max_events
+    eid = _event_ids(boundaries, E)
+    sums, cnts = segment_sum(x.to(torch.float32).contiguous(), eid, E,
+                             valid_len)
+    means = sums / torch.clamp(cnts, min=1.0)
+    return means, _n_events(eid, valid_len, E), cnts
 
 
 def early_quantize(signal: torch.Tensor, cfg: MarsConfig) -> torch.Tensor:
     """Robust-normalize raw (R, S) f32 signals and quantize them to the
-    Q-format: (R, S) int32.  Fixed-point early-quantization path only."""
+    Q-format: (R, S) int32, the input of the fixed-point path (the
+    ``cheap_fused`` and ``event_detect`` kernels)."""
     if not (cfg.early_quantization and cfg.fixed_point):
-        raise NotImplementedError(
-            f"mode {cfg.mode!r}: only the fixed-point early-quantization "
-            "path (ms_fixed) is ported")
+        raise ValueError(
+            f"mode {cfg.mode!r}: the Q-format int32 signal feeds the "
+            "fixed-point path (ms_fixed) only")
     x = robust_normalize(signal)
     return quantize_signal_fixed(x, cfg.frac_bits).to(torch.int32)
 
@@ -267,10 +371,23 @@ def detect_quantized(xq: torch.Tensor, cfg: MarsConfig):
     return means, n, cnts
 
 
-def detect_events(signal: torch.Tensor, cfg: MarsConfig):
+def detect_events(signal: torch.Tensor, cfg: MarsConfig,
+                  segment_sum=segment_sum_in_order):
     """Event detection over a batch.  signal: (R, S) f32 raw.
 
     Returns (event_means (R, E) f32 in normalized units, n_events (R,) i32,
-    counts (R, E) f32).  Fixed-point early-quantization path only.
+    counts (R, E) f32).  Dispatches on cfg.early_quantization / fixed_point
+    as the reference's ``detect_events`` does; the float paths take their
+    event sums from ``segment_sum``.
     """
-    return detect_quantized(early_quantize(signal, cfg), cfg)
+    if cfg.early_quantization and cfg.fixed_point:
+        return detect_quantized(early_quantize(signal, cfg), cfg)
+    x = robust_normalize(signal)
+    if cfg.early_quantization:
+        # early quantization, float compute: the quantize/dequantize round
+        # trip models the precision loss
+        x = dequantize_fixed(quantize_signal_fixed(x, cfg.frac_bits),
+                             cfg.frac_bits)
+    b = boundary_mask_float(x, cfg)
+    return segment_means(x, b, signal.shape[-1], cfg.max_events,
+                         segment_sum=segment_sum)

@@ -8,7 +8,8 @@
 Backend selection flows only through the stage registry (core/stages.py):
 ``map_chunk`` takes a plan resolved by ``stages.resolve_plan``;
 ``use_kernels=True`` asks for the hand-written CUDA kernels (the whole-
-phase ``cheap_fused`` kernel, the ``bitonic_sort`` row sorter and the
+phase ``cheap_fused`` kernel, or per stage the ``event_detect`` detector
+and the ``pluto_lookup`` gathers; the ``bitonic_sort`` row sorter and the
 ``chain_dp`` banded DP).  Every plan gives the same results bit for bit.
 
 Everything runs eagerly on the device of the input tensors.  Where the
@@ -61,41 +62,28 @@ def check_device(device) -> torch.device:
 # --------------------------------------------------------------------------- #
 # Cheap phase (detect .. vote)
 # --------------------------------------------------------------------------- #
-def check_plain_cheap(plan: stages.Plan, device) -> None:
-    """Raise unless ``plan`` may run the per-stage torch cheap phase on
-    ``device``: a plan that asks for kernels on a CUDA device runs the cheap
-    phase through the fused kernel only, since the per-stage kernels
-    (event_detect, pluto_lookup) are not ported yet and the plain torch
-    program would stand in for them unseen."""
-    backend = dict(plan)["cheap"]
-    if torch.device(device).type == "cuda" and backend != stages.REFERENCE:
-        raise NotImplementedError(
-            f"the {backend!r} plan runs the cheap phase on a CUDA device "
-            "through the fused cheap_fused kernel only; this config is "
-            "outside its gate (fixed point, early quantization, t-stat "
-            "window in int32 range) or use_fused=False asked for the "
-            "per-stage kernels, which are not ported yet.  Use the "
-            "reference plan (use_kernels=False) or CPU tensors")
-
-
 def cheap_phase(signals: torch.Tensor, index: Dict[str, torch.Tensor],
                 cfg: MarsConfig, plan: stages.Plan, use_fused: bool = True):
     """The cheap phase (detect..vote) over a chunk.
 
     Dispatch ladder, most-fused first: (1) the whole-phase kernel
-    (``stages.register_fused_cheap``) when the plan resolves one — detect..
+    (``stages.register_fused_cheap``) when the plan resolved one — detect..
     vote in ONE launch; (2) the per-stage batch program
-    (``cheap.cheap_phase_stages``), for the reference plan and for CPU
-    tensors (``check_plain_cheap``).  ``use_fused=False`` pins level (2).
-    Returns (q_pos, t_pos, hit_valid, counters);
-    ``counters["n_anchors_postvote"]`` is the per-read post-filter anchor
-    count the compaction gate keys on.
+    (``cheap.cheap_phase_stages``) with the plan's ``detector`` and
+    ``gather``: detect runs once per chunk and the query issues two
+    whole-chunk gathers (the ``event_detect`` and ``pluto_lookup`` kernels
+    where the plan resolved them; the reference math for a stage that
+    resolved to the reference, as in the reference package).
+    ``use_fused=False`` pins level (2).  Returns (q_pos, t_pos, hit_valid,
+    counters); ``counters["n_anchors_postvote"]`` is the per-read
+    post-filter anchor count the compaction gate keys on.
     """
-    fused = stages.cheap_primitives(plan, cfg) if use_fused else None
-    if fused is not None:
-        return fused(signals, index)
-    check_plain_cheap(plan, signals.device)
-    return cheap.cheap_phase_stages(signals, index, cfg)
+    prims = stages.cheap_primitives(plan, cfg)
+    if use_fused and prims.fused is not None:
+        return prims.fused(signals, index)
+    return cheap.cheap_phase_stages(signals, index, cfg,
+                                    detector=prims.detector,
+                                    gather=prims.gather)
 
 
 # --------------------------------------------------------------------------- #

@@ -20,8 +20,9 @@
 // one-hot f32 matmuls (segment sums, gathers, vote histogram) become integer
 // shared-memory atomics, exact in any order, and its double-buffered DMA
 // sweep of the whole index becomes direct loads of exactly the bucket
-// offsets and entry rows each seed probes.  The sample-axis prefix sum of
-// the boundary flags is a block-wide warp-shuffle scan.
+// offsets and entry rows each seed probes.  The detection half (boundary
+// test, peaks, the block-wide scan into event ids, segment sums) is
+// detect_fixed.cuh, shared with event_detect.cu.
 //
 // Exactness: the arithmetic follows the reference operation for operation.
 // The boundary score is the IEEE division (float)lhs / ((float)rhs + 1);
@@ -32,11 +33,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "detect_fixed.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kFill = -3.0e38f;     // peak-pick border fill
 constexpr int kDiagShift = 1 << 20;   // vote.DIAG_SHIFT
 constexpr int kCounters = 9;          // COUNTER_COLS
 
@@ -95,12 +96,6 @@ __device__ __forceinline__ unsigned mix32(unsigned x) {
   return x;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
 // Sum of v over the block, returned to every thread.  `red` holds 32 ints.
 __device__ int block_sum(int v, int* red) {
   v = warp_sum(v);
@@ -110,28 +105,6 @@ __device__ int block_sum(int v, int* red) {
   int tot = 0;
   for (int w = 0; w < (int)(blockDim.x >> 5); ++w) tot += red[w];
   return tot;
-}
-
-// Inclusive prefix sum of v in thread order; *total gets the block sum.
-__device__ int block_scan(int v, int* red, int* total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  __syncthreads();
-  if (lane == 31) red[w] = x;
-  __syncthreads();
-  int pre = 0, tot = 0;
-  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) {
-    const int s = red[k];
-    if (k < w) pre += s;
-    tot += s;
-  }
-  *total = tot;
-  return pre + x;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -165,70 +138,10 @@ cheap_fused_kernel(const int* __restrict__ xq, const int* __restrict__ bs,
   const unsigned mask = static_cast<unsigned>(p.n_buckets - 1);
   const int N = p.n_entries;
 
-  // ---- stage the read's Q-format samples ---------------------------------
-  for (int i = tid; i < S; i += NT) x[i] = xq[r * S + i];
-  for (int e = tid; e < E; e += NT) {
-    sums[e] = 0;
-    cnts[e] = 0;
-  }
-  __syncthreads();
-
-  // ---- integer (sqrt-free) t-stat boundary test --------------------------
-  for (int i = tid; i < S; i += NT) {
-    int sl = 0, sr = 0, ql = 0, qr = 0;
-    for (int d = 0; d < p.tw; ++d) {
-      const int il = i - d - 1;
-      if (il >= 0) {
-        const int v = x[il];
-        sl += v;
-        ql += v * v;
-      }
-      const int ir = i + d;
-      if (ir < S) {
-        const int v = x[ir];
-        sr += v;
-        qr += v * v;
-      }
-    }
-    const int diff = (sr - sl) >> 2;
-    const int ssd_l = p.tw * ql - sl * sl;
-    const int ssd_r = p.tw * qr - sr * sr;
-    const int lhs = diff * diff * p.tw;
-    const int rhs = p.tau2 * (((ssd_l + ssd_r) >> 4) + p.eps);
-    above[i] = lhs > rhs;
-    score[i] = __fdiv_rn(static_cast<float>(lhs),
-                         __fadd_rn(static_cast<float>(rhs), 1.0f));
-  }
-  __syncthreads();
-
-  // ---- peak pick, event-id prefix scan, integer segment sums -------------
-  int carry = 0;
-  for (int c0 = 0; c0 < S; c0 += NT) {
-    const int i = c0 + tid;
-    int b = 0, xi = 0;
-    if (i < S) {
-      const float sc = score[i];
-      float wmax = sc, lmax = sc;
-      for (int d = 1; d <= p.peak_r; ++d) {
-        const float lft = (i - d >= 0) ? score[i - d] : kFill;
-        const float rgt = (i + d < S) ? score[i + d] : kFill;
-        wmax = fmaxf(wmax, fmaxf(lft, rgt));
-        lmax = fmaxf(lmax, lft);
-      }
-      b = (sc >= wmax && sc >= lmax && above[i]) ? 1 : 0;
-      xi = x[i];
-    }
-    int chunk_total;
-    const int eid = carry + block_scan(b, red, &chunk_total);
-    if (i < S) {
-      const int e = min(eid, E - 1);
-      atomicAdd(&sums[e], xi);
-      atomicAdd(&cnts[e], 1);
-    }
-    carry += chunk_total;
-  }
-  const int nev = min(carry + 1, E);
-  __syncthreads();
+  // ---- event detection: boundary test, peaks, event ids, segment sums --
+  const DetectParams dp{p.S, p.E, p.tw, p.tau2, p.eps, p.peak_r};
+  const int nev = detect_fixed_block(xq + r * S, dp, x, score, above, sums,
+                                     cnts, red);
 
   // ---- event means -> Q-format -> integer z-score -> symbols -------------
   const float fscale = static_cast<float>(1 << p.frac_bits);

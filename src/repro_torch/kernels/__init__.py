@@ -16,7 +16,9 @@ from typing import Dict, Sequence
 import torch
 
 LAUNCHES: Dict[str, int] = {"cheap_fused": 0, "bitonic_sort": 0,
-                            "chain_dp": 0}
+                            "chain_dp": 0, "event_detect": 0,
+                            "pluto_lookup": 0, "pluto_lookup_rows": 0,
+                            "segment_sum": 0}
 
 
 def reset_launches() -> None:

@@ -27,7 +27,8 @@ from typing import Dict, Optional
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[3] / "build"
               / "repro_torch_kernels")
-SOURCES = ("runtime.cu", "cheap_fused.cu", "bitonic_sort.cu", "chain_dp.cu")
+SOURCES = ("runtime.cu", "cheap_fused.cu", "bitonic_sort.cu", "chain_dp.cu",
+           "event_detect.cu", "pluto_lookup.cu", "segment_sum.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-O3", "-std=c++17", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v"]
@@ -109,6 +110,7 @@ def lib() -> ctypes.CDLL:
     if _LIB is None:
         handle = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        I64 = ctypes.c_int64
         handle.repro_cuda_error_string.argtypes = [I]
         handle.repro_cuda_error_string.restype = ctypes.c_char_p
         handle.cheap_fused_rows.argtypes = [P, P, P, P, P, P, I,
@@ -118,6 +120,14 @@ def lib() -> ctypes.CDLL:
         handle.bitonic_sort_rows.restype = I
         handle.chain_dp_rows.argtypes = [P, P, P, P, P, I, I, I, F, F, F, P]
         handle.chain_dp_rows.restype = I
+        handle.event_detect_rows.argtypes = [P, P, P] + [I] * 8 + [P]
+        handle.event_detect_rows.restype = I
+        handle.pluto_lookup.argtypes = [P, P, P, I64, I, P]
+        handle.pluto_lookup.restype = I
+        handle.pluto_lookup_rows.argtypes = [P, P, P, I64, I, I, P]
+        handle.pluto_lookup_rows.restype = I
+        handle.segment_sum_rows.argtypes = [P, P, P, P, I, I, I, I, P]
+        handle.segment_sum_rows.restype = I
         _LIB = handle
     return _LIB
 

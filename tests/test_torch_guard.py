@@ -3,7 +3,6 @@ its entry points run on CUDA unless asked for the CPU (no silent fallback),
 and its kernel wrappers never catch a failed launch to fall back."""
 import ast
 import pathlib
-import types
 
 import numpy as np
 import pytest
@@ -46,6 +45,20 @@ def test_no_jax_or_reference_package_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_core_imports_no_kernel_module():
+    """``repro_torch.core`` reaches a kernel only through the stage
+    registry (``stages._BACKEND_MODULES``, loaded when a plan asks for
+    it): no core module imports ``repro_torch.kernels``."""
+    for path in sorted((PORT / "core").glob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+        mods += [n.module or "" for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.level == 0]
+        bad = [m for m in mods if m.startswith("repro_torch.kernels")]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_kernel_wrappers_have_no_fallback_handler():
     """A CUDA tensor launches the kernel or raises: no ``try`` in a wrapper
     could swallow a failed launch and quietly take the plain version."""
@@ -82,31 +95,55 @@ def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
 
 
 def test_kernels_plan_never_runs_the_plain_cheap_phase_on_cuda(small_index):
-    """On a CUDA device the kernels plan runs the cheap phase through the
-    fused kernel or raises: neither a config outside the kernel's gate nor
-    ``use_fused=False`` lets the plain per-stage program stand in for the
-    unported per-stage kernels.  The reference plan and CPU tensors still
-    run it.  (A stand-in carries the CUDA device: the guard reads nothing
-    else before raising.)"""
+    """The kernels plan's per-stage cheap level binds the ``event_detect``
+    and ``lookup`` kernel primitives; a config outside the detect gate
+    resolves ``detect`` (and the fused kernel) to the reference, as the
+    reference package's plan does, and keeps the lookup kernels.  A kernel
+    wrapper handed a tensor that is not on the CPU launches or raises: it
+    never takes its plain version (here no card exists, so it raises)."""
     from repro_torch.core import pipeline, stages
-    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    from repro_torch.kernels.event_detect import ops as ed_ops
+    from repro_torch.kernels.pluto_lookup import ops as pl_ops
     cfg = MarsConfig(hash_bits=10)
     wide = cfg.replace(tstat_window=13)
     kern = stages.resolve_plan(cfg, stages.KERNELS)
-    assert stages.fused_cheap_backend(kern, cfg) is not None
-    assert stages.fused_cheap_backend(kern, wide) is None
-    with pytest.raises(NotImplementedError, match="cheap_fused"):
-        pipeline.cheap_phase(on_card, {}, wide, kern)
-    with pytest.raises(NotImplementedError, match="use_fused=False"):
-        pipeline.cheap_phase(on_card, {}, cfg, kern, use_fused=False)
-    pipeline.check_plain_cheap(stages.resolve_plan(cfg, stages.REFERENCE),
-                               on_card.device)
+    assert dict(kern) == {"detect": "kernels", "query": "kernels",
+                          "sort": "kernels", "dp": "kernels",
+                          "fused": "kernels"}
+    prims = stages.cheap_primitives(kern, cfg)
+    assert prims.detector.func is ed_ops.event_detect
+    assert prims.gather is pl_ops.lookup
+    kern_w = stages.resolve_plan(wide, stages.KERNELS)
+    assert dict(kern_w)["detect"] == dict(kern_w)["fused"] == "reference"
+    prims_w = stages.cheap_primitives(kern_w, wide)
+    assert prims_w.fused is None
+    assert prims_w.detector.func is not ed_ops.event_detect
+    assert prims_w.gather is pl_ops.lookup
+    # a reference detect takes its float segment sums from the plan: the
+    # kernel under the kernels plan, the plain loop under the reference's
+    from repro_torch.core import events
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    flt = cfg.with_mode("ms_float")
+    for backend, seg in ((stages.KERNELS, ss_ops.segment_sum),
+                         (stages.REFERENCE, events.segment_sum_in_order)):
+        det = stages.cheap_primitives(stages.resolve_plan(flt, backend),
+                                      flt).detector
+        assert det.keywords["segment_sum"] is seg, backend
+    off_cpu = torch.empty((2, cfg.signal_len), dtype=torch.int32,
+                          device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        ed_ops.event_detect_rows(off_cpu, cfg)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pl_ops.lookup(off_cpu[0], off_cpu[1])
     sig = torch.from_numpy(simulate.sample_reads(
         simulate.make_reference(3_000, seed=2), 2, signal_len=cfg.signal_len,
         seed=3).signals)
     arrays = Mapper(small_index, cfg, device="cpu").arrays
     out = pipeline.cheap_phase(sig, arrays, cfg, kern, use_fused=False)
     assert out[1].shape == (2, cfg.max_events, cfg.max_hits_per_seed)
+    # the reference detect refuses the config, as the reference's does
+    with pytest.raises(ValueError, match="overflows int32"):
+        pipeline.cheap_phase(sig, arrays, wide, kern_w)
 
 
 def test_cpu_tensors_take_the_plain_versions():
