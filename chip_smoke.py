@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                reports them;
 2. build     — compile the CUDA kernels of ``src/repro_torch/csrc`` (nvcc,
                one process per source) and print ptxas's register and
-               shared-memory summary;
+               shared-memory summary, and the SASS instruction counts of
+               the DP's anchor loop and of the sort for 4096 lanes;
 3. map       — the main path (``ms_fixed``): end to end through
                ``Mapper(..., use_kernels=True)`` and the streaming driver at
                D1 (29,903 bases) and D5 (2,000,000 bases), 4096 reads in
@@ -41,7 +42,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                of 1024 samples, E=192 events, H=16 hits), the two lookups
                on the indices D5's query issues for it, segment_sum on its
                ms_float detection, the sort and the DP on the very inputs
-               each route of phase 4 gave them.  Tolerance: exact.
+               each route of phase 4 gave them, and on inputs built to
+               break them (the sort's edge rows at 512 x 4096 and 512 x
+               8192, the DP's tie-heavy anchors at 512 x 512).
+               Tolerance: exact.
                Times from warmed CUDA events; ``bound_ms`` is the least time
                the card could take (bytes over 3.35 TB/s, operations over
                67 T/s scalar), from this run's inputs;
@@ -170,6 +174,79 @@ def phase_device():
     return name, smi
 
 
+def ptxas_summary(log: str):
+    """Registers, spills and stack of each kernel in one source's
+    ``nvcc -Xptxas -v`` output, keyed by the kernel's mangled name."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                     map(int, m.groups())))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
+
+
+SASS_OPS = ("SHFL", "REDUX", "BAR", "IMNMX", "FFMA", "FSEL", "FSETP", "FADD")
+
+
+def sass_counts(lib_path) -> dict:
+    """Instruction counts from the library's SASS (``cuobjdump -sass``):
+    the DP kernel's innermost loop (the unrolled anchor steps) and the whole
+    sort instance for rows of 4096 lanes, by opcode family and in total."""
+    import re
+    from repro_torch.kernels import build
+    text = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
+                           str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        # /*addr*/ [@predicate] OPCODE operands
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if m and name:
+            funcs[name].append((int(m.group(1), 16), m.group(2),
+                                m.group(3)))
+    dp = next(v for k, v in funcs.items() if "chain_dp_kernel" in k)
+    # innermost loop: a backward branch's span that holds no other one
+    spans = []
+    for i, (addr, op, rest) in enumerate(dp):
+        m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if m and int(m.group(1), 16) < addr:
+            target = int(m.group(1), 16)
+            spans.append((next(j for j, x in enumerate(dp) if x[0] >= target),
+                          i))
+    inner = [(a, b) for a, b in spans
+             if not any(a <= c and d <= b and (c, d) != (a, b)
+                        for c, d in spans)]
+    a, b = max(inner, key=lambda ab: ab[1] - ab[0])
+
+    def count(instrs):
+        out = {op: sum(1 for _, o, _ in instrs
+                       if o.split(".")[0].lstrip("V") == op)
+               for op in SASS_OPS}
+        out["total"] = len(instrs)
+        return out
+    sort = next(v for k, v in funcs.items()
+                if "bitonic_sort_kernelILi4096E" in k)
+    return {"chain_dp loop": count(dp[a:b + 1]),
+            "bitonic_sort<4096>": count(sort)}
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.time()
@@ -182,6 +259,15 @@ def phase_build():
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
                 log(f"[build] {name}: {line.strip()}")
+    # the two kernels redesigned for Hopper: ptxas's registers and spills,
+    # and their SASS instruction counts
+    record = {src: ptxas_summary(build.BUILD_LOG.get(src, ""))
+              for src in ("bitonic_sort.cu", "chain_dp.cu")}
+    record["sass"] = sass_counts(build.build())
+    for k, v in record["sass"].items():
+        log(f"[build] SASS {k}: " + ", ".join(f"{n} {c}"
+                                              for n, c in v.items()))
+    return record
 
 
 def make_dataset(key: str):
@@ -421,6 +507,49 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
         log(f"[kernels] chain_dp {label} ({N}, {A}) equal; kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.5f} ms "
             f"({b_by}){' [main path]' if main else ''}")
+    # inputs built to break the two redesigned kernels: the sort's edge rows
+    # at 4096 keys and at the wrapper's limit of 8192, the DP's tie-heavy
+    # anchors (ties decided by the oldest-slot rule, anchors max_gap apart)
+    import numpy as np
+    from repro_torch.kernels.fixtures import edge_rows, tie_anchors
+    for L in (4096, 8192):
+        rows = torch.from_numpy(edge_rows(np.random.default_rng(L), R,
+                                          L)).to(dev)
+        g = sort_ops.sort_rows(rows)
+        torch.cuda.synchronize()
+        err = assert_equal(f"bitonic_sort edge rows ({R}, {L})", g,
+                           sort_rows_ref(rows))
+        k_ms = time_ms(lambda: sort_ops.sort_rows(rows), 20)
+        l_ms = time_ms(lambda: torch.sort(rows, dim=-1), 20)
+        lg = int(math.log2(L))
+        b_ms, b_by = bound(2 * 4 * R * L, 2 * R * (L // 2) * lg * (lg + 1)
+                           // 2)
+        sort_shapes.append(dict(
+            route=f"edge rows {R}x{L}", on_main_path=False,
+            shape=f"({R}, {L}) -> {L} lanes", max_abs_err=err, ms=k_ms,
+            plain_ms=l_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"[kernels] bitonic_sort edge rows ({R}, {L}) equal; kernel "
+            f"{k_ms:.4f} ms, torch.sort {l_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})")
+    A = cfg.max_anchors
+    q, t, v = tie_anchors(np.random.default_rng(0), R, A,
+                          max_gap=cfg.max_gap)
+    v[1] = False
+    sq, st, sv = (torch.from_numpy(x).to(dev) for x in (q, t, v))
+    g = dp_ops.chain_dp(sq, st, sv, cfg)
+    want = chain_dp_ref(sq, st, sv, cfg)
+    torch.cuda.synchronize()
+    err = max(assert_equal(f"chain_dp tie rows {n}", a, b)
+              for n, a, b in zip(("f", "diag0"), g, want))
+    k_ms = time_ms(lambda: dp_ops.chain_dp(sq, st, sv, cfg), 20)
+    b_ms, b_by = bound(R * A * (4 + 4 + 1 + 4 + 4),
+                       15 * R * A * cfg.chain_band)
+    dp_shapes.append(dict(
+        route=f"tie rows {R}x{A}", on_main_path=False,
+        shape=f"({R}, {A}), B={cfg.chain_band}", max_abs_err=err, ms=k_ms,
+        plain_ms=None, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    log(f"[kernels] chain_dp tie rows ({R}, {A}) equal; kernel {k_ms:.4f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by})")
     # the summary line's figures: D5's full chunk at full width, the route
     # every D5 main-path chunk takes
     primary = f"D5 full/{EH}"
@@ -787,7 +916,7 @@ def main() -> int:
     t_all = time.time()
 
     name, smi = phase_device()
-    phase_build()
+    build_record = phase_build()
     data = {k: make_dataset(k) for k in ("D1", "D5")}
     maps = {k: run_map(k, *data[k], dev) for k in ("D1", "D5")}
     floats = phase_float(data, dev)
@@ -852,7 +981,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        dict(device=name, nvidia_smi=smi, kernels=summary, map=maps,
+        dict(device=name, nvidia_smi=smi, build=build_record, kernels=summary,
+             map=maps,
              float=floats, perstage=perstage, launcher=launcher,
              routes=routes, seconds=time.time() - t_all), indent=1,
         default=str))

@@ -2,10 +2,10 @@
 stage backend.
 
 Rows are padded with INT32_MAX to ``max(128, next_pow2(L))`` lanes, as the
-reference package's ``sort_batch`` pads them (the kernel pads in shared
-memory), and sorted one CTA per row.
-A padded row longer than ``MAX_BLOCK`` (8192) raises: one row must fit the
-CTA's shared memory, and on the mapping path L <= 4096.
+reference package's ``sort_batch`` pads them (the kernel pads in registers,
+8 keys a thread), and sorted by one CTA per row (several short rows share
+one).  A padded row longer than ``MAX_BLOCK`` (8192) raises: one row must
+fit one CTA's 1024 threads, and on the mapping path L <= 4096.
 """
 from __future__ import annotations
 
@@ -39,8 +39,8 @@ def sort_rows(keys: torch.Tensor) -> torch.Tensor:
 
 
 def _sort_rows_kernel(keys: torch.Tensor) -> torch.Tensor:
-    """Rows are padded to ``max(128, next_pow2(L))`` lanes inside the
-    kernel's shared memory; only the L real lanes are read and written."""
+    """Rows are padded to ``max(128, next_pow2(L))`` lanes in the kernel's
+    registers; only the L real lanes are read and written."""
     n, L = keys.shape
     Lp = max(128, _next_pow2(L))
     keys = keys.contiguous()

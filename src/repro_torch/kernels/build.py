@@ -40,15 +40,16 @@ BUILD_LOG: Dict[str, str] = {}
 BUILD_SECONDS: Optional[float] = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (PATH, CUDA_HOME, /usr/local/cuda)."""
+    found = shutil.which(name)
     if found:
         return found
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
-            return str(pathlib.Path(root) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda); "
-                       "the CUDA kernels are built with the CUDA toolkit")
+        if root and (pathlib.Path(root) / "bin" / name).exists():
+            return str(pathlib.Path(root) / "bin" / name)
+    raise RuntimeError(f"{name} not found (PATH, CUDA_HOME, /usr/local/cuda);"
+                       " the CUDA kernels are built with the CUDA toolkit")
 
 
 def _digest() -> str:
@@ -70,7 +71,7 @@ def build() -> pathlib.Path:
     if lib_path.exists():
         return lib_path
     t0 = time.time()
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
     procs = {}

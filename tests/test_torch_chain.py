@@ -221,3 +221,101 @@ def test_sort_anchors_equals_jax(width):
                                 width=width)
     for g, w, n in zip(got, want, ("sq", "st", "sv")):
         _eq(g, w, n)
+
+
+# --------------------------------------------------------------------------- #
+# The split recurrence of the chain_dp kernel (csrc/chain_dp.cu)
+# --------------------------------------------------------------------------- #
+INT_MIN = -(1 << 31)
+
+
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's int32 image of an f32: ordered as the floats are,
+    -0.0 taken as +0.0."""
+    i = x.view(torch.int32)
+    i = torch.where(i == INT_MIN, torch.zeros_like(i), i)
+    return i ^ ((i >> 31) & INT_MAX)
+
+
+def _from_key(k: torch.Tensor) -> torch.Tensor:
+    return (k ^ ((k >> 31) & INT_MAX)).view(torch.float32)
+
+
+def _split_dp(q, t, valid, cfg):
+    """A model of the kernel's step: the band's older slots (all but the
+    newest) reduced ahead through the int32 order image (the max, then the
+    least age rank among the slots that reach it), then the newest slot's
+    candidate merged by a STRICT ``>``.  Returns (f, diag0, ties): ties
+    counts the steps that extend a chain (best > 0) where slots with
+    different diag0 reach the best, split by whether the newest slot is one
+    of them."""
+    N, A = q.shape
+    B = cfg.chain_band
+    lane = torch.arange(B)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)     # noqa: E731
+    ngc, nsc, w = f32(-cfg.gap_cost), f32(-cfg.skip_cost), f32(
+        cfg.anchor_score)
+    neg, half_neg, zero = f32(chaining.NEG), f32(chaining.NEG / 2), f32(0.0)
+    bf = torch.full((N, B), chaining.NEG, dtype=torch.float32)
+    bd = torch.zeros((N, B), dtype=torch.int32)
+    bt = torch.full((N, B), chaining._SENT, dtype=torch.int32)
+    bq = torch.full((N, B), chaining._SENT, dtype=torch.int32)
+    f_out = torch.empty((N, A), dtype=torch.float32)
+    d_out = torch.empty((N, A), dtype=torch.int32)
+    ties = {"older": 0, "newest": 0}
+    for i in range(A):
+        ti, qi, vi = t[:, i:i + 1], q[:, i:i + 1], valid[:, i:i + 1]
+        dt, dq = ti - bt, qi - bq
+        ok = (dt > 0) & (dq > 0) & (dt <= cfg.max_gap) & (dq <= cfg.max_gap)
+        gap = torch.abs(dt - dq).to(torch.float32)
+        skip = torch.minimum(dt, dq).to(torch.float32)
+        cand = chaining.fma_f32(chaining.fma_f32(bf, ngc, gap), nsc, skip)
+        cand = torch.where(ok & (bf > half_neg), cand, neg)
+        k = (lane - i) % B                        # age rank, 0 = oldest
+        key = torch.where(k == B - 1, torch.full_like(k, INT_MIN, dtype=
+                                                      torch.int32),
+                          _order_key(cand))
+        kmax = key.max(1, keepdim=True).values
+        kbest = torch.where(key == kmax, k, B).min(1, keepdim=True).values
+        best = _from_key(kmax.contiguous())
+        dbest = torch.gather(bd, 1, (kbest + i) % B)
+        s = (i - 1) % B                           # anchor i - 1, rank B - 1
+        take = cand[:, s:s + 1] > best
+        best = torch.where(take, cand[:, s:s + 1], best)
+        dbest = torch.where(take, bd[:, s:s + 1], dbest)
+        reach = (cand == best) & (best > zero)
+        spread = reach.any(1) & (torch.where(reach, bd, INT_MAX).min(1).values
+                                 != torch.where(reach, bd, INT_MIN).max(1)
+                                 .values)
+        newest = reach[:, (i - 1) % B]
+        ties["older"] += int((spread & ~newest).sum())
+        ties["newest"] += int((spread & newest).sum())
+        fi = torch.where(vi, w + torch.maximum(best, zero), neg)
+        di = torch.where(best > zero, dbest, ti - qi)
+        f_out[:, i:i + 1], d_out[:, i:i + 1] = fi, di
+        s = i % B
+        bf[:, s:s + 1], bd[:, s:s + 1] = fi, di
+        bt[:, s:s + 1], bq[:, s:s + 1] = ti, qi
+    return f_out, d_out, ties
+
+
+@pytest.mark.parametrize("seed", [13, 14, 15])
+def test_split_dp_recurrence_equals_plain_and_jax(seed):
+    """The kernel's evaluation order (csrc/chain_dp.cu) on tie-heavy
+    anchors, bit-equal to chaining.chain_dp and to the JAX Pallas kernel in
+    interpret mode."""
+    from repro_torch.kernels.fixtures import tie_anchors
+    cfg_j, cfg_t = _cfgs(max_anchors=96)
+    q, t, v = tie_anchors(np.random.default_rng(seed), 4, 96,
+                          max_gap=cfg_t.max_gap)
+    v[2] = False                                  # an all-invalid row
+    args = [torch.from_numpy(x) for x in (q, t, v)]
+    f, dg, ties = _split_dp(*args, cfg_t)
+    assert ties["older"] > 10 and ties["newest"] > 10, ties
+    pf, pd = chaining.chain_dp(*args, cfg_t)
+    _eq(f.view(torch.int32), pf.view(torch.int32).numpy(), "f vs plain")
+    _eq(dg, pd.numpy(), "diag0 vs plain")
+    wf, wd = jdp_ops.chain_dp(jnp.asarray(q), jnp.asarray(t), jnp.asarray(v),
+                              cfg_j)
+    _eq(f, wf, "f vs jax kernel")
+    _eq(dg, wd, "diag0 vs jax kernel")

@@ -6,7 +6,9 @@ detection, the sort and the DP.  At full width
 the sort and the DP take every read of the chunk, as the gate's full branch
 gives them (rows of 3072 keys, 512 anchors); at the ladder widths they take
 the reads with anchors, as the compacted branch does (64 or 128 of each
-read's smallest keys).  Tolerance: exact.
+read's smallest keys).  Beside those, inputs built to break the two
+redesigned kernels: the sort's edge rows at every padded width and the
+DP's tie-heavy anchors.  Tolerance: exact.
 
 Marked ``gpu``; every test decides inside itself whether a card exists and
 skips without one:
@@ -107,6 +109,72 @@ def test_chain_dp_kernel_equals_plain(d5, A):
     got = ops.chain_dp(sq, st, sv, cfg)
     want = chain_dp_ref(sq, st, sv, cfg)
     torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("rows", [1, 513])
+@pytest.mark.parametrize("L", [1, 7, 33, 127, 128, 129, 1000, 3072, 4096,
+                               8192])
+def test_bitonic_sort_kernel_equals_plain_on_edge_rows(L, rows):
+    """Rows the register network could get wrong (INT32_MAX and INT32_MIN
+    inside, all equal, heavy duplicates, negatives, all pads) at every
+    padded width and at row counts that leave a CTA part-filled."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.kernels.bitonic_sort import ops
+    from repro_torch.kernels.bitonic_sort.ref import sort_rows_ref
+    from repro_torch.kernels.fixtures import edge_rows
+    dev = _card()
+    keys = torch.from_numpy(edge_rows(np.random.default_rng(L + rows), rows,
+                                      L)).to(dev)
+    n0 = K.LAUNCHES["bitonic_sort"]
+    got = ops.sort_rows(keys)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["bitonic_sort"] == n0 + 1
+    assert torch.equal(got, sort_rows_ref(keys))
+
+
+@pytest.mark.parametrize("L", [128, 1000, 3072])
+def test_bitonic_sort_kernel_equals_plain_on_unaligned_rows(L):
+    """Rows that start 4 bytes past a 16-byte boundary take the key-by-key
+    loads: the same answer."""
+    import numpy as np
+    from repro_torch.kernels.bitonic_sort import ops
+    from repro_torch.kernels.bitonic_sort.ref import sort_rows_ref
+    from repro_torch.kernels.fixtures import edge_rows
+    dev = _card()
+    rows = torch.from_numpy(edge_rows(np.random.default_rng(L), 37, L))
+    buf = torch.empty(rows.numel() + 1, dtype=torch.int32, device=dev)
+    keys = buf[1:].view(37, L)
+    keys.copy_(rows)
+    assert keys.data_ptr() % 16 == 4
+    got = ops.sort_rows(keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sort_rows_ref(keys))
+
+
+@pytest.mark.parametrize("A", [1, 31, 33, 512])
+def test_chain_dp_kernel_equals_plain_on_tie_rows(d5, A):
+    """Anchors where several band slots tie for the best candidate with
+    different diagonals (the oldest-slot rule decides diag0), the newest
+    slot among them or not, anchors exactly max_gap apart, and an
+    all-invalid row."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.kernels.chain_dp import ops
+    from repro_torch.kernels.chain_dp.ref import chain_dp_ref
+    from repro_torch.kernels.fixtures import tie_anchors
+    cfg = d5[0]
+    dev = d5[2].device
+    q, t, v = tie_anchors(np.random.default_rng(A), 64, A,
+                          max_gap=cfg.max_gap)
+    v[1] = False
+    sq, st, sv = (torch.from_numpy(x).to(dev) for x in (q, t, v))
+    n0 = K.LAUNCHES["chain_dp"]
+    got = ops.chain_dp(sq, st, sv, cfg)
+    want = chain_dp_ref(sq, st, sv, cfg)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["chain_dp"] == n0 + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
