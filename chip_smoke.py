@@ -10,7 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build     — compile the CUDA kernels of ``src/repro_torch/csrc`` (nvcc,
                one process per source) and print ptxas's register and
                shared-memory summary, and the SASS instruction counts of
-               the DP's anchor loop and of the sort for 4096 lanes;
+               the DP's anchor loop, of the sort for 4096 lanes, of the
+               fused cheap phase's shipped instance and of the segment
+               sum (IDIV: integer divisions by a runtime value, one
+               I2F.U32.RP each);
 3. map       — the main path (``ms_fixed``): end to end through
                ``Mapper(..., use_kernels=True)`` and the streaming driver at
                D1 (29,903 bases) and D5 (2,000,000 bases), 4096 reads in
@@ -39,9 +42,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                count; each must take its route and equal the plain path;
 5. kernels   — each kernel against its plain PyTorch version on the card:
                cheap_fused and event_detect on D5's first chunk (512 reads
-               of 1024 samples, E=192 events, H=16 hits), the two lookups
-               on the indices D5's query issues for it, segment_sum on its
-               ms_float detection, the sort and the DP on the very inputs
+               of 1024 samples, E=192 events, H=16 hits; cheap_fused also
+               in its generic instance, H=12 and 3000 vote bins), the two
+               lookups on the indices D5's query issues for it, segment_sum
+               on its ms_float and rh2 detections, the sort and the DP on
+               the very inputs
                each route of phase 4 gave them, and on inputs built to
                break them (the sort's edge rows at 512 x 4096 and 512 x
                8192, the DP's tie-heavy anchors at 512 x 512).
@@ -196,13 +201,16 @@ def ptxas_summary(log: str):
     return out
 
 
-SASS_OPS = ("SHFL", "REDUX", "BAR", "IMNMX", "FFMA", "FSEL", "FSETP", "FADD")
+SASS_OPS = ("SHFL", "REDUX", "BAR", "IMNMX", "FFMA", "FSEL", "FSETP", "FADD",
+            "ATOMS", "LDG", "LDS")
 
 
 def sass_counts(lib_path) -> dict:
     """Instruction counts from the library's SASS (``cuobjdump -sass``):
-    the DP kernel's innermost loop (the unrolled anchor steps) and the whole
-    sort instance for rows of 4096 lanes, by opcode family and in total."""
+    the DP kernel's innermost loop (the unrolled anchor steps), and the
+    whole of the sort instance for rows of 4096 lanes, of the fused cheap
+    phase's shipped instance and of the segment sum, by opcode family, in
+    total, and the integer divisions by a runtime value (IDIV)."""
     import re
     from repro_torch.kernels import build
     text = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
@@ -239,12 +247,17 @@ def sass_counts(lib_path) -> dict:
         out = {op: sum(1 for _, o, _ in instrs
                        if o.split(".")[0].lstrip("V") == op)
                for op in SASS_OPS}
+        out["IDIV"] = sum(1 for _, o, _ in instrs if o == "I2F.U32.RP")
         out["total"] = len(instrs)
         return out
-    sort = next(v for k, v in funcs.items()
-                if "bitonic_sort_kernelILi4096E" in k)
+
+    def func(pattern):
+        return next(v for k, v in funcs.items() if pattern in k)
     return {"chain_dp loop": count(dp[a:b + 1]),
-            "bitonic_sort<4096>": count(sort)}
+            "bitonic_sort<4096>": count(func("bitonic_sort_kernelILi4096E")),
+            "cheap_fused<16,4096,192,4,3>": count(func(
+                "cheap_fused_kernelILi16ELi4096ELi192ELi4ELi3E")),
+            "segment_sum": count(func("segment_sum_kernel"))}
 
 
 def phase_build():
@@ -259,10 +272,11 @@ def phase_build():
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
                 log(f"[build] {name}: {line.strip()}")
-    # the two kernels redesigned for Hopper: ptxas's registers and spills,
-    # and their SASS instruction counts
+    # the kernels redesigned for Hopper: ptxas's registers and spills, and
+    # their SASS instruction counts
     record = {src: ptxas_summary(build.BUILD_LOG.get(src, ""))
-              for src in ("bitonic_sort.cu", "chain_dp.cu")}
+              for src in ("bitonic_sort.cu", "chain_dp.cu", "cheap_fused.cu",
+                          "segment_sum.cu")}
     record["sass"] = sass_counts(build.build())
     for k, v in record["sass"].items():
         log(f"[build] SASS {k}: " + ", ".join(f"{n} {c}"
@@ -425,42 +439,53 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
 
     arrays = index_arrays(index, dev)
     bs, ent = arrays["bucket_start"], arrays["entries_packed"]
-    R, E, H = CHUNK, cfg.max_events, cfg.max_hits_per_seed
-    EH = E * H
+    R, E = CHUNK, cfg.max_events
+    EH = E * cfg.max_hits_per_seed
     sig = torch.from_numpy(reads.signals[:R]).to(dev)
     xq = events.early_quantize(sig, cfg)
     S = xq.shape[1]
     results = {}
 
-    # ---- cheap_fused ------------------------------------------------------
-    got = cf_ops.cheap_fused_rows(xq, bs, ent, cfg)
-    want = cheap_fused_rows_ref(xq, bs, ent, cfg)
-    torch.cuda.synchronize()
-    err = max(assert_equal(f"cheap_fused {n}", g, w) for n, g, w in
-              zip(("t_pos", "keep", "counters"), got, want))
-    k_ms = time_ms(lambda: cf_ops.cheap_fused_rows(xq, bs, ent, cfg), 20)
-    p_ms = time_ms(lambda: cheap_fused_rows_ref(xq, bs, ent, cfg), 3)
-    # bytes this run's data needs: samples in, planes out, and the distinct
-    # bucket offsets and entry rows its seeds probe
-    means, nev, _ = events.detect_quantized(xq, cfg)
-    ev_valid = torch.arange(E, device=dev) < nev.unsqueeze(-1)
-    sym = quantization.quantize_events(means, ev_valid, cfg)
-    keys, _ = hashing.pack_seeds(sym, nev, cfg)
-    bkt = (keys & (cfg.n_buckets - 1)).reshape(-1)
-    n_bs = torch.unique(torch.cat([bkt, bkt + 1])).numel()
-    idx = (bs[bkt].to(torch.int64)[:, None]
-           + torch.arange(H, device=dev)).clamp(max=ent.shape[1] - 1)
-    n_ent = torch.unique(idx.reshape(-1)).numel()
-    n_bytes = 4 * R * S + 2 * 4 * R * EH + 4 * R * 9 + 4 * n_bs + 8 * n_ent
-    n_ops = R * (S * (4 * cfg.tstat_window + 16 + 4 * cfg.peak_window)
-                 + E * (2 * cfg.seed_width + 24 * 4 + 16) + EH * 24)
-    b_ms, b_by = bound(n_bytes, n_ops)
-    results["cheap_fused"] = dict(
-        shape=f"D5 chunk 0: xq ({R}, {S}) int32, E*H = {EH}, index "
-              f"{ent.shape[1]} entries", max_abs_err=err, ms=k_ms,
-        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"[kernels] cheap_fused equal; kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
+    # ---- cheap_fused: the shipped config's instance and the generic one --
+    cheap_shapes = []
+    for label, c in (("shipped", cfg),
+                     ("generic", cfg.replace(max_hits_per_seed=12,
+                                             vote_bins=3000))):
+        Hc = c.max_hits_per_seed
+        EHc = E * Hc
+        got = cf_ops.cheap_fused_rows(xq, bs, ent, c)
+        want = cheap_fused_rows_ref(xq, bs, ent, c)
+        torch.cuda.synchronize()
+        err = max(assert_equal(f"cheap_fused {label} {n}", g, w) for n, g, w
+                  in zip(("t_pos", "keep", "counters"), got, want))
+        k_ms = time_ms(lambda: cf_ops.cheap_fused_rows(xq, bs, ent, c), 20)
+        p_ms = time_ms(lambda: cheap_fused_rows_ref(xq, bs, ent, c), 3)
+        # bytes this run's data needs: samples in, planes out, and the
+        # distinct bucket offsets and entry rows its seeds probe
+        means, nev, _ = events.detect_quantized(xq, c)
+        ev_valid = torch.arange(E, device=dev) < nev.unsqueeze(-1)
+        sym = quantization.quantize_events(means, ev_valid, c)
+        keys, _ = hashing.pack_seeds(sym, nev, c)
+        bkt = (keys & (c.n_buckets - 1)).reshape(-1)
+        n_bs = torch.unique(torch.cat([bkt, bkt + 1])).numel()
+        idx = (bs[bkt].to(torch.int64)[:, None]
+               + torch.arange(Hc, device=dev)).clamp(max=ent.shape[1] - 1)
+        n_ent = torch.unique(idx.reshape(-1)).numel()
+        n_bytes = (4 * R * S + 2 * 4 * R * EHc + 4 * R * 9 + 4 * n_bs
+                   + 8 * n_ent)
+        n_ops = R * (S * (4 * c.tstat_window + 16 + 4 * c.peak_window)
+                     + E * (2 * c.seed_width + 24 * 4 + 16) + EHc * 24)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        cheap_shapes.append(dict(
+            route=label, on_main_path=label == "shipped",
+            shape=f"D5 chunk 0: xq ({R}, {S}) int32, E*H = {E}*{Hc}, "
+                  f"{c.vote_bins} vote bins, index {ent.shape[1]} entries",
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
+        log(f"[kernels] cheap_fused {label} instance (H={Hc}, "
+            f"{c.vote_bins} bins) equal; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
+    results["cheap_fused"] = dict(cheap_shapes[0], by_shape=cheap_shapes)
 
     # ---- bitonic_sort and chain_dp: each route's own inputs ---------------
     sort_shapes, dp_shapes = [], []
@@ -798,30 +823,40 @@ def phase_new_kernels(cfg, reads, index, dev):
             f"{p_ms:.4f} ms, {lib} {l_ms:.4f} ms, bound {b_ms:.5f} ms "
             f"({b_by})")
 
-    # ---- segment_sum, on D5 chunk 0's ms_float detection ------------------
-    cfg_f = cfg.with_mode("ms_float")
-    x = events.dequantize_fixed(xq, cfg.frac_bits)
-    eid = events._event_ids(events.boundary_mask_float(x, cfg_f), E)
-    got = ss_ops.segment_sum(x, eid, E, S)
-    want_s = segment_sum_ref(x, eid, E, S)
-    torch.cuda.synchronize()
-    err = max(assert_equal(f"segment_sum {n}", g, w)
-              for n, g, w in zip(("sums", "counts"), got, want_s))
-    k_ms = time_ms(lambda: ss_ops.segment_sum(x, eid, E, S), 20)
-    p_ms = time_ms(lambda: segment_sum_ref(x, eid, E, S), 2)
-    flat_e = (eid + E * torch.arange(R, device=dev, dtype=torch.int32)[
-        :, None]).reshape(-1)
-    flat_x = x.reshape(-1)
-    l_ms = time_ms(lambda: torch.zeros(R * E, device=dev).index_add_(
-        0, flat_e, flat_x), 20)
-    b_ms, b_by = bound(8 * R * S + 8 * R * E, 2 * R * S)
-    results["segment_sum"] = dict(
-        shape=f"D5 chunk 0 (ms_float): x ({R}, {S}) f32 -> ({R}, {E})",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=l_ms, library="index_add_ (atomic order)")
-    log(f"[kernels] segment_sum equal; kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.3f} ms, index_add_ {l_ms:.4f} ms, bound {b_ms:.5f} ms "
-        f"({b_by})")
+    # ---- segment_sum, on D5 chunk 0's ms_float and rh2 detections --------
+    seg_shapes = []
+    sig = torch.from_numpy(reads.signals[:R]).to(dev)
+    x_f = events.dequantize_fixed(xq, cfg.frac_bits)
+    x_r = events.robust_normalize(sig)
+    for mode, x in (("ms_float", x_f), ("rh2", x_r)):
+        eid = events._event_ids(
+            events.boundary_mask_float(x, cfg.with_mode(mode)), E)
+        got = ss_ops.segment_sum(x, eid, E, S)
+        want_s = segment_sum_ref(x, eid, E, S)
+        torch.cuda.synchronize()
+        err = max(assert_equal(f"segment_sum {mode} {n}", g, w)
+                  for n, g, w in zip(("sums", "counts"), got, want_s))
+        k_ms = time_ms(lambda: ss_ops.segment_sum(x, eid, E, S), 20)
+        p_ms = time_ms(lambda: segment_sum_ref(x, eid, E, S), 2)
+        flat_e = (eid + E * torch.arange(R, device=dev, dtype=torch.int32)[
+            :, None]).reshape(-1)
+        flat_x = x.reshape(-1)
+        l_ms = time_ms(lambda: torch.zeros(R * E, device=dev).index_add_(
+            0, flat_e, flat_x), 20)
+        b_ms, b_by = bound(8 * R * S + 8 * R * E, 2 * R * S)
+        longest = int(max(torch.unique_consecutive(r, return_counts=True)[1]
+                          .max() for r in eid.cpu()))
+        seg_shapes.append(dict(
+            route=mode, on_main_path=True,
+            shape=f"D5 chunk 0 ({mode}): x ({R}, {S}) f32 -> ({R}, {E}), "
+                  f"longest run {longest}",
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=l_ms,
+            library="index_add_ (atomic order)"))
+        log(f"[kernels] segment_sum {mode} equal (longest run {longest}); "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, index_add_ "
+            f"{l_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    results["segment_sum"] = dict(seg_shapes[0], by_shape=seg_shapes)
     K.reset_launches()
     return results
 

@@ -37,6 +37,11 @@ def _segment_sum_kernel(x, eid, n_seg: int, valid_len: int):
     from repro_torch.kernels import build
     x, eid = x.contiguous(), eid.contiguous()
     K.check_cuda("segment_sum", x, eid)
+    if valid_len >= 1 << 24:
+        # the kernel counts in int32 and writes f32: past 2^24 the plain
+        # version's in-order f32 count of ones stops growing
+        raise ValueError(f"segment_sum: valid_len {valid_len} >= 2^24 "
+                         "samples per row")
     R, S = x.shape
     sums = torch.empty((R, n_seg), dtype=torch.float32, device=x.device)
     cnts = torch.empty((R, n_seg), dtype=torch.float32, device=x.device)

@@ -6,9 +6,10 @@ detection, the sort and the DP.  At full width
 the sort and the DP take every read of the chunk, as the gate's full branch
 gives them (rows of 3072 keys, 512 anchors); at the ladder widths they take
 the reads with anchors, as the compacted branch does (64 or 128 of each
-read's smallest keys).  Beside those, inputs built to break the two
-redesigned kernels: the sort's edge rows at every padded width and the
-DP's tie-heavy anchors.  Tolerance: exact.
+read's smallest keys).  Beside those, inputs built to break the
+redesigned kernels: the sort's edge rows at every padded width, the DP's
+tie-heavy anchors, the fused cheap phase's edge reads and generic-instance
+configs, and the segment sum's edge ids.  Tolerance: exact.
 
 Marked ``gpu``; every test decides inside itself whether a card exists and
 skips without one:
@@ -275,6 +276,133 @@ def test_segment_sum_kernel_equals_plain(d5):
     want = segment_sum_ref(x, eid, cfg.max_events, x.shape[1])
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# Reads and configs built to break the fused kernel: every hit on one
+# diagonal window (the vote histogram's atomics all on two bins), flat
+# reads (no boundary: one event), reads whose events fill all E slots, and
+# configs that take the generic instance (H = 12 and 3000 vote bins; other
+# windows and minimizer winnowing).
+CHEAP_CASES = ("one vote bin", "flat reads", "events fill E",
+               "generic H=12 bins=3000", "generic tw=3 peak=2 minimizer=2")
+
+
+@pytest.mark.parametrize("case", CHEAP_CASES)
+def test_cheap_fused_kernel_equals_plain_on_edge_reads(d5, case):
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core import events
+    from repro_torch.kernels.cheap_fused import ops
+    from repro_torch.kernels.cheap_fused.ref import cheap_fused_rows_ref
+    cfg, arrays, xq = d5
+    bs, ent = arrays["bucket_start"], arrays["entries_packed"]
+    if case == "one vote bin":
+        # t_pos - e + 2^20 in [256 k, 256 k + 255] for every e < E
+        ent = ent.clone()
+        ent[1] = 255 + 256 * 20
+    elif case == "flat reads":
+        xq = torch.zeros_like(xq[:64])
+    elif case == "events fill E":
+        # levels 5 samples long, of alternating sign: more boundaries
+        # than E slots
+        rng = np.random.default_rng(2)
+        S = cfg.signal_len
+        levels = rng.uniform(0.8, 2.0, (64, S // 5 + 1)) * np.where(
+            np.arange(S // 5 + 1) % 2, 1.0, -1.0)
+        sig = (np.repeat(levels, 5, axis=1)[:, :S]
+               + rng.normal(0, .01, (64, S)))
+        xq = events.early_quantize(
+            torch.from_numpy(sig.astype(np.float32)).to(xq.device), cfg)
+    elif case.startswith("generic H"):
+        cfg = cfg.replace(max_hits_per_seed=12, vote_bins=3000)
+    else:
+        cfg = cfg.replace(tstat_window=3, peak_window=2, minimizer_radius=2)
+    n0 = K.LAUNCHES["cheap_fused"]
+    got = ops.cheap_fused_rows(xq, bs, ent, cfg)
+    want = cheap_fused_rows_ref(xq, bs, ent, cfg)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cheap_fused"] == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), case
+    cnt = want[2]
+    if case == "one vote bin":
+        assert int(cnt[:, 7].sum()) > 0
+    elif case == "flat reads":
+        assert (cnt[:, 0] == 1).all()
+    elif case == "events fill E":
+        assert (cnt[:, 0] == cfg.max_events).all()
+
+
+# Ids built to break the segment-parallel sum: ids that decrease (the scan
+# path), one run longer than the CTA, the clamped tail event, samples past
+# valid_len, the rh2 detection (normalized signal, order-sensitive sums)
+# and rows of three tiles with one mixed tile.
+SEGMENT_CASES = ("shuffled ids", "one run of 1024", "tail run",
+                 "valid_len 700", "rh2 detection", "three tiles")
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_sum_kernel_equals_plain_on_edge_ids(d5, case):
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core import events
+    from repro_torch.kernels.segment_sum import ops
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+    cfg, _, xq = d5
+    dev = xq.device
+    E = cfg.max_events
+    x = events.dequantize_fixed(xq, cfg.frac_bits)
+    eid = events._event_ids(
+        events.boundary_mask_float(x, cfg.with_mode("ms_float")), E)
+    R, S = x.shape
+    valid_len = S
+    rng = np.random.default_rng(len(case))
+    if case == "shuffled ids":
+        perm = torch.from_numpy(np.argsort(rng.random((R, S)), 1)).to(dev)
+        eid = eid.gather(1, perm).contiguous()
+    elif case == "one run of 1024":
+        x = events.robust_normalize(x)
+        eid = torch.zeros_like(eid)
+    elif case == "tail run":
+        x = events.robust_normalize(x)
+        eid = torch.clamp(torch.arange(S, dtype=torch.int32, device=dev) // 2,
+                          max=E - 1).expand(R, S).contiguous()
+    elif case == "valid_len 700":
+        valid_len = 700
+    elif case == "rh2 detection":
+        x = events.robust_normalize(x)
+        eid = events._event_ids(
+            events.boundary_mask_float(x, cfg.with_mode("rh2")), E)
+    else:
+        x = torch.from_numpy((rng.standard_normal((64, 6000)) * 3).astype(
+            np.float32)).to(dev)
+        e = np.sort(rng.integers(0, 300, (64, 6000)), axis=1)
+        e[1] = rng.integers(0, 300, 6000)
+        e[2, 2500:2600] = e[2, 2500:2600][::-1]
+        eid = torch.from_numpy(e.astype(np.int32)).to(dev)
+        E, valid_len = 300, 5990
+    n0 = K.LAUNCHES["segment_sum"]
+    got = ops.segment_sum(x, eid, E, valid_len)
+    want = segment_sum_ref(x, eid, E, valid_len)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["segment_sum"] == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_segment_sum_kernel_refuses_rows_past_2_24():
+    """Past 2^24 samples the plain version's in-order f32 count of ones
+    stops growing while the kernel's integer count does not: the wrapper
+    raises on the card instead of launching."""
+    dev = _card()
+    from repro_torch.kernels.segment_sum import ops
+    n = 1 << 24
+    x = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    eid = torch.zeros((1, n), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="2\\^24"):
+        ops.segment_sum(x, eid, 4, n)
+    sums, cnts = ops.segment_sum(x, eid, 4, n - 1)
+    torch.cuda.synchronize()
+    assert float(cnts[0, 0]) == n - 1
 
 
 @pytest.fixture(scope="module")
