@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                one process per source) and print ptxas's register and
                shared-memory summary, and the SASS instruction counts of
                the DP's anchor loop, of the sort for 4096 lanes, of the
-               fused cheap phase's shipped instance and of the segment
-               sum (IDIV: integer divisions by a runtime value, one
+               fused cheap phase's shipped instance, of the segment sum,
+               of the event detection's shipped instance and of the 1-D
+               lookup (IDIV: integer divisions by a runtime value, one
                I2F.U32.RP each);
 3. map       — the main path (``ms_fixed``): end to end through
                ``Mapper(..., use_kernels=True)`` and the streaming driver at
@@ -42,9 +43,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                count; each must take its route and equal the plain path;
 5. kernels   — each kernel against its plain PyTorch version on the card:
                cheap_fused and event_detect on D5's first chunk (512 reads
-               of 1024 samples, E=192 events, H=16 hits; cheap_fused also
-               in its generic instance, H=12 and 3000 vote bins), the two
-               lookups on the indices D5's query issues for it, segment_sum
+               of 1024 samples, E=192 events, H=16 hits; both also in their
+               generic instances: cheap_fused at H=12 and 3000 vote bins,
+               event_detect at tw=3, peak_r=2, each also on edge reads),
+               the two lookups on the indices D5's query issues for it
+               (pluto_lookup also on edge indices), segment_sum
                on its ms_float and rh2 detections, the sort and the DP on
                the very inputs
                each route of phase 4 gave them, and on inputs built to
@@ -53,7 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                Tolerance: exact.
                Times from warmed CUDA events; ``bound_ms`` is the least time
                the card could take (bytes over 3.35 TB/s, operations over
-               67 T/s scalar), from this run's inputs;
+               67 T/s scalar), from this run's inputs; the launch floor is
+               an empty kernel timed the same way (one CTA, and at the
+               grids of event_detect and pluto_lookup);
 6. profile   — torch.profiler over one streamed pass at each size (and at
                D5 in each float mode): device time by kernel, the device's
                busy share of the wall time, host time by op (traces in
@@ -202,15 +207,16 @@ def ptxas_summary(log: str):
 
 
 SASS_OPS = ("SHFL", "REDUX", "BAR", "IMNMX", "FFMA", "FSEL", "FSETP", "FADD",
-            "ATOMS", "LDG", "LDS")
+            "ATOMS", "LDG", "LDS", "MUFU")
 
 
 def sass_counts(lib_path) -> dict:
     """Instruction counts from the library's SASS (``cuobjdump -sass``):
     the DP kernel's innermost loop (the unrolled anchor steps), and the
     whole of the sort instance for rows of 4096 lanes, of the fused cheap
-    phase's shipped instance and of the segment sum, by opcode family, in
-    total, and the integer divisions by a runtime value (IDIV)."""
+    phase's shipped instance, of the segment sum, of the event detection's
+    shipped instance and of the 1-D lookup, by opcode family, in total,
+    and the integer divisions by a runtime value (IDIV)."""
     import re
     from repro_torch.kernels import build
     text = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
@@ -257,7 +263,10 @@ def sass_counts(lib_path) -> dict:
             "bitonic_sort<4096>": count(func("bitonic_sort_kernelILi4096E")),
             "cheap_fused<16,4096,192,4,3>": count(func(
                 "cheap_fused_kernelILi16ELi4096ELi192ELi4ELi3E")),
-            "segment_sum": count(func("segment_sum_kernel"))}
+            "segment_sum": count(func("segment_sum_kernel")),
+            "event_detect<4,3>": count(func(
+                "event_detect_kernelILi4ELi3E")),
+            "pluto_lookup": count(func("13lookup_kernel"))}
 
 
 def phase_build():
@@ -276,7 +285,8 @@ def phase_build():
     # their SASS instruction counts
     record = {src: ptxas_summary(build.BUILD_LOG.get(src, ""))
               for src in ("bitonic_sort.cu", "chain_dp.cu", "cheap_fused.cu",
-                          "segment_sum.cu")}
+                          "segment_sum.cu", "event_detect.cu",
+                          "pluto_lookup.cu")}
     record["sass"] = sass_counts(build.build())
     for k, v in record["sass"].items():
         log(f"[build] SASS {k}: " + ", ".join(f"{n} {c}"
@@ -742,6 +752,90 @@ def phase_perstage(data, dev):
     return out
 
 
+def event_detect_edges(label, xq, cfg, dev):
+    """event_detect against its plain version on reads built to break it:
+    all-zero reads (one event), levels of alternating sign (more
+    boundaries than E: the E-1 clamp), rows of 1000 and 1001 samples (not
+    a multiple of the thread count; rows not 16-byte aligned), of 3 samples
+    (under one thread's run) and of 3072 (three passes of the shipped
+    instance)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import events
+    from repro_torch.kernels.event_detect import ops as ed_ops
+    from repro_torch.kernels.event_detect.ref import event_detect_rows_ref
+    E, S = cfg.max_events, xq.shape[1]
+    rng = np.random.default_rng(2)
+    levels = rng.uniform(0.8, 2.0, (64, S // 5 + 1)) * np.where(
+        np.arange(S // 5 + 1) % 2, 1.0, -1.0)
+    sig = np.repeat(levels, 5, axis=1)[:, :S] + rng.normal(0, .01, (64, S))
+    edges = {
+        "all zero": torch.zeros_like(xq[:64]),
+        "alternating levels": events.early_quantize(
+            torch.from_numpy(sig.astype(np.float32)).to(dev), cfg),
+        "S=1000": xq[:, :1000].contiguous(),
+        "S=1001": xq[:, :1001].contiguous(),
+        "S=3": xq[:, :3].contiguous(),
+        "S=3072": torch.cat([xq, xq.flip(0), xq.roll(7, 0)], 1).contiguous()}
+    for name, x in edges.items():
+        got = ed_ops.event_detect_rows(x, cfg)
+        want = event_detect_rows_ref(x, cfg)
+        torch.cuda.synchronize()
+        for n, g, w in zip(("means", "n_events"), got, want):
+            assert_equal(f"event_detect {label} {name} {n}", g, w)
+        if name == "all zero" and not bool((want[1] == 1).all()):
+            raise AssertionError("event_detect edge: all-zero reads must "
+                                 "hold one event")
+        if name == "alternating levels" and not bool((want[1] == E).all()):
+            raise AssertionError("event_detect edge: alternating levels "
+                                 "must fill all E events")
+    log(f"[kernels] event_detect {label} instance equal on edge reads: "
+        + ", ".join(f"{n} ({x.shape[0]} x {x.shape[1]})"
+                    for n, x in edges.items()))
+
+
+def pluto_lookup_edges(table, dev):
+    """pluto_lookup against its plain version on indices far outside
+    [0, N-1], at Q = 1, 7 and 196,609 (odd: one query left over), and on an
+    index view at storage offset 1."""
+    import torch
+    from repro_torch.kernels.pluto_lookup import ops as pl_ops
+    from repro_torch.kernels.pluto_lookup.ref import lookup_ref
+    g = torch.Generator().manual_seed(15)
+    edges = {f"Q={q}": torch.randint(-2**31, 2**31 - 1, (q,), generator=g,
+                                     dtype=torch.int32).to(dev)
+             for q in (1, 7, 196_609)}
+    edges["offset 1"] = torch.randint(
+        -1000, table.numel() + 1000, (196_610,), generator=g,
+        dtype=torch.int32).to(dev)[1:]
+    for name, i in edges.items():
+        got = pl_ops.lookup(table, i)
+        torch.cuda.synchronize()
+        assert_equal(f"pluto_lookup {name}", got, lookup_ref(table, i))
+    log(f"[kernels] pluto_lookup equal on edge indices: "
+        + ", ".join(edges))
+
+
+def launch_floor(dev):
+    """Mean device time of an empty kernel over 20 back-to-back launches
+    (time_ms, as the kernels are timed): one CTA of 32 threads, and at the
+    grids of event_detect (512 CTAs of 256) and pluto_lookup (192 of
+    256) on a D5 chunk."""
+    import torch
+    from repro_torch.kernels import build
+    lib = build.lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def empty(blocks, threads):
+        build.check(lib.repro_empty_launch(blocks, threads, stream),
+                    "empty kernel")
+    out = {f"{b}x{n}": time_ms(lambda: empty(b, n), 20)
+           for b, n in ((1, 32), (512, 256), (192, 256))}
+    log(f"[kernels] launch floor: empty kernel " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
 def phase_new_kernels(cfg, reads, index, dev):
     """event_detect, the two lookups and the segment_sum helper against
     their plain versions on D5's first chunk, timed with their bounds and
@@ -765,26 +859,34 @@ def phase_new_kernels(cfg, reads, index, dev):
     S = xq.shape[1]
     results = {}
 
-    # ---- event_detect -----------------------------------------------------
-    got = ed_ops.event_detect_rows(xq, cfg)
-    want = event_detect_rows_ref(xq, cfg)
-    torch.cuda.synchronize()
-    err = max(assert_equal(f"event_detect {n}", g, w)
-              for n, g, w in zip(("means", "n_events"), got, want))
-    k_ms = time_ms(lambda: ed_ops.event_detect_rows(xq, cfg), 20)
-    p_ms = time_ms(lambda: event_detect_rows_ref(xq, cfg), 5)
-    b_ms, b_by = bound(4 * R * S + 4 * R * E + 4 * R,
-                       R * (S * (4 * cfg.tstat_window + 16
-                                 + 4 * cfg.peak_window) + 2 * E))
-    results["event_detect"] = dict(
-        shape=f"D5 chunk 0: xq ({R}, {S}) int32 -> means ({R}, {E})",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    log(f"[kernels] event_detect equal; kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
+    # ---- event_detect: the shipped windows' instance and the generic one --
+    ed_shapes = []
+    for label, c in (("shipped", cfg),
+                     ("generic", cfg.replace(tstat_window=3, peak_window=2))):
+        got = ed_ops.event_detect_rows(xq, c)
+        want = event_detect_rows_ref(xq, c)
+        torch.cuda.synchronize()
+        err = max(assert_equal(f"event_detect {label} {n}", g, w)
+                  for n, g, w in zip(("means", "n_events"), got, want))
+        k_ms = time_ms(lambda: ed_ops.event_detect_rows(xq, c), 20)
+        p_ms = time_ms(lambda: event_detect_rows_ref(xq, c), 5)
+        b_ms, b_by = bound(4 * R * S + 4 * R * E + 4 * R,
+                           R * (S * (4 * c.tstat_window + 16
+                                     + 4 * c.peak_window) + 2 * E))
+        ed_shapes.append(dict(
+            route=label, on_main_path=label == "shipped",
+            shape=f"D5 chunk 0: xq ({R}, {S}) int32 -> means ({R}, {E}), "
+                  f"tw={c.tstat_window}, peak_r={c.peak_window}",
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
+        log(f"[kernels] event_detect {label} instance (tw={c.tstat_window}, "
+            f"peak_r={c.peak_window}) equal; kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})")
+        event_detect_edges(label, xq, c, dev)
+    results["event_detect"] = dict(ed_shapes[0], by_shape=ed_shapes)
 
     # ---- the two lookups, on the indices D5's query issues ----------------
-    means, nev = want
+    means, nev = event_detect_rows_ref(xq, cfg)
     valid = torch.arange(E, device=dev) < nev.unsqueeze(-1)
     keys, _ = hashing.pack_seeds(quantization.quantize_events(means, valid,
                                                               cfg), nev, cfg)
@@ -794,6 +896,7 @@ def phase_new_kernels(cfg, reads, index, dev):
     idx = torch.clamp(start.unsqueeze(-1)
                       + torch.arange(H, dtype=torch.int32, device=dev),
                       max=ent.shape[1] - 1)
+    pluto_lookup_edges(bs, dev)
     for name, table, i in (("pluto_lookup", bs, bidx),
                            ("pluto_lookup_rows", ent, idx)):
         got = pl_ops.lookup(table, i)
@@ -819,9 +922,17 @@ def phase_new_kernels(cfg, reads, index, dev):
                   f"({n_words} distinct)", max_abs_err=err, ms=k_ms,
             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
             library=lib)
+        seq = ""
+        if table.ndim == 1:
+            # the same kernel on as many sequential indices: every gather
+            # coalesced, the two dependent loads and the launch left
+            ar = torch.arange(Q, dtype=torch.int32, device=dev) % len(table)
+            results[name]["sequential_ms"] = s_ms = time_ms(
+                lambda: pl_ops.lookup(table, ar), 20)
+            seq = f", on {Q} sequential indices {s_ms:.4f} ms"
         log(f"[kernels] {name} equal; kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, {lib} {l_ms:.4f} ms, bound {b_ms:.5f} ms "
-            f"({b_by})")
+            f"({b_by}){seq}")
 
     # ---- segment_sum, on D5 chunk 0's ms_float and rh2 detections --------
     seg_shapes = []
@@ -962,6 +1073,7 @@ def main() -> int:
     kern = phase_kernels(*[data["D5"][i] for i in (0, 2, 3)], inputs,
                          main_routes, dev)
     kern.update(phase_new_kernels(*[data["D5"][i] for i in (0, 2, 3)], dev))
+    floor = launch_floor(dev)
     for k in maps:
         maps[k]["profile"] = phase_profile(k, *data[k], dev)
     for mode in FLOAT_MODES:
@@ -1010,6 +1122,7 @@ def main() -> int:
             equal=True, max_abs_err=r["max_abs_err"], ms=r["ms"],
             kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            floor_ms=floor["1x32"], sequential_ms=r.get("sequential_ms"),
             library_ms=r["library_ms"], library=r.get("library"),
             shape=r["shape"], by_shape=r.get("by_shape"),
             helper=k == "segment_sum"))
@@ -1017,7 +1130,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(device=name, nvidia_smi=smi, build=build_record, kernels=summary,
-             map=maps,
+             launch_floor_ms=floor, map=maps,
              float=floats, perstage=perstage, launcher=launcher,
              routes=routes, seconds=time.time() - t_all), indent=1,
         default=str))

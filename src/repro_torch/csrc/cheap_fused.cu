@@ -27,7 +27,9 @@
 // sweep of the whole index becomes direct loads of exactly the bucket
 // offsets and entry rows each seed probes.  The detection half (boundary
 // test, peaks, the block-wide scan into event ids, segment sums) is
-// detect_fixed.cuh, shared with event_detect.cu.  To cut the instruction
+// detect_fixed.cuh, shared with event_detect.cu: the shipped instance
+// takes its register body (4 samples a thread, no shared sample or score
+// array), the generic one its shared-memory body.  To cut the instruction
 // count:
 //  - the 24-step integer Newton square root runs in one warp, in unsigned
 //    arithmetic, beside the mean and variance sums, and its result goes to
@@ -168,8 +170,13 @@ cheap_fused_kernel(const int* __restrict__ xq, const int* __restrict__ bs,
 
   // ---- event detection: boundary test, peaks, event ids, segment sums --
   const DetectParams dp{p.S, p.E, p.tw, p.tau2, p.eps, p.peak_r};
-  const int nev = detect_fixed_block<kTw, kPeakR>(
-      xq + r * S, dp, x, score, above, sums, cnts, red);
+  int nev;
+  if constexpr (kTw != 0 && kPeakR != 0)
+    nev = detect_fixed_regs<kThreads, 4, kTw, kPeakR>(    // edge: red[32..]
+        xq + r * S, dp, reinterpret_cast<float*>(red + 32), sums, cnts, red);
+  else
+    nev = detect_fixed_block(xq + r * S, dp, x, score, above, sums, cnts,
+                             red);
 
   // ---- event means -> Q-format -------------------------------------------
   const float fscale = static_cast<float>(1 << p.frac_bits);

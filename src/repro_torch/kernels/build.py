@@ -114,6 +114,8 @@ def lib() -> ctypes.CDLL:
         I64 = ctypes.c_int64
         handle.repro_cuda_error_string.argtypes = [I]
         handle.repro_cuda_error_string.restype = ctypes.c_char_p
+        handle.repro_empty_launch.argtypes = [I, I, P]
+        handle.repro_empty_launch.restype = I
         handle.cheap_fused_rows.argtypes = [P, P, P, P, P, P, I,
                                             CheapParams, P]
         handle.cheap_fused_rows.restype = I

@@ -9,7 +9,9 @@ the reads with anchors, as the compacted branch does (64 or 128 of each
 read's smallest keys).  Beside those, inputs built to break the
 redesigned kernels: the sort's edge rows at every padded width, the DP's
 tie-heavy anchors, the fused cheap phase's edge reads and generic-instance
-configs, and the segment sum's edge ids.  Tolerance: exact.
+configs, the segment sum's edge ids, the event detection's edge reads in
+both its instances (and the fused kernel's detection on the same reads),
+and the 1-D lookup's edge indices.  Tolerance: exact.
 
 Marked ``gpu``; every test decides inside itself whether a card exists and
 skips without one:
@@ -238,6 +240,110 @@ def test_lookup_kernels_equal_plain(d5):
         torch.cuda.synchronize()
         assert K.LAUNCHES[name] == n0 + 1
         assert torch.equal(got, lookup_ref(table, i)), name
+
+
+# Reads built to break the event detection: all-zero reads (one event),
+# levels of alternating sign (more boundaries than E: the E-1 clamp), rows
+# of 1000 and 1001 samples (not a multiple of the thread count; rows not
+# 16-byte aligned), of 3 samples (under one thread's run) and of 3072
+# (three passes of the shipped instance).
+DETECT_CASES = ("D5 chunk", "all zero", "alternating levels", "S=1000",
+                "S=1001", "S=3", "S=3072")
+
+
+def _detect_edge_reads(d5, case):
+    import numpy as np
+    from repro_torch.core import events
+    cfg, _, xq = d5
+    S = xq.shape[1]
+    if case == "all zero":
+        return torch.zeros_like(xq[:64])
+    if case == "alternating levels":
+        rng = np.random.default_rng(2)
+        levels = rng.uniform(0.8, 2.0, (64, S // 5 + 1)) * np.where(
+            np.arange(S // 5 + 1) % 2, 1.0, -1.0)
+        sig = (np.repeat(levels, 5, axis=1)[:, :S]
+               + rng.normal(0, .01, (64, S)))
+        return events.early_quantize(
+            torch.from_numpy(sig.astype(np.float32)).to(xq.device), cfg)
+    if case == "S=3072":
+        return torch.cat([xq, xq.flip(0), xq.roll(7, 0)], 1).contiguous()
+    if case.startswith("S="):
+        return xq[:, :int(case[2:])].contiguous()
+    return xq
+
+
+# (the shipped instance on D5's chunk is test_event_detect_kernel_equals_plain)
+@pytest.mark.parametrize("instance,case", [
+    (i, c) for i in ("shipped", "generic tw=3 peak=2") for c in DETECT_CASES
+    if (i, c) != ("shipped", "D5 chunk")])
+def test_event_detect_kernel_equals_plain_on_edge_reads(d5, case, instance):
+    from repro_torch import kernels as K
+    from repro_torch.kernels.event_detect import ops
+    from repro_torch.kernels.event_detect.ref import event_detect_rows_ref
+    cfg = d5[0]
+    if instance != "shipped":
+        cfg = cfg.replace(tstat_window=3, peak_window=2)
+    xq = _detect_edge_reads(d5, case)
+    n0 = K.LAUNCHES["event_detect"]
+    got = ops.event_detect_rows(xq, cfg)
+    want = event_detect_rows_ref(xq, cfg)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["event_detect"] == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "all zero":
+        assert (want[1] == 1).all()
+    elif case == "alternating levels":
+        assert (want[1] == cfg.max_events).all()
+
+
+@pytest.mark.parametrize("case", DETECT_CASES[1:])
+def test_cheap_fused_detection_equals_event_detect_on_edge_reads(d5, case):
+    """The fused kernel's detection (the shared detect_fixed.cuh, 256
+    threads x 4 samples) on the event detection's edge reads: its outputs
+    equal the plain version's, and its event counts those of the
+    event_detect kernel."""
+    from repro_torch.kernels.cheap_fused import ops
+    from repro_torch.kernels.cheap_fused.ref import cheap_fused_rows_ref
+    from repro_torch.kernels.event_detect import ops as ed_ops
+    cfg, arrays, _ = d5
+    xq = _detect_edge_reads(d5, case)
+    args = (xq, arrays["bucket_start"], arrays["entries_packed"], cfg)
+    got = ops.cheap_fused_rows(*args)
+    want = cheap_fused_rows_ref(*args)
+    n_ev = ed_ops.event_detect_rows(xq, cfg)[1]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[2][:, 0], n_ev)
+
+
+# Indices built to break the 1-D lookup: far outside [0, N-1] at Q = 1, 7
+# and 196,609 (odd: a query left over after the pairs), and an index view at
+# storage offset 1.
+LOOKUP_CASES = ("Q=1", "Q=7", "Q=196609", "offset 1")
+
+
+@pytest.mark.parametrize("case", LOOKUP_CASES)
+def test_lookup_kernel_equals_plain_on_edge_indices(d5, case):
+    from repro_torch import kernels as K
+    from repro_torch.kernels.pluto_lookup import ops
+    from repro_torch.kernels.pluto_lookup.ref import lookup_ref
+    _, arrays, xq = d5
+    table = arrays["bucket_start"]
+    g = torch.Generator().manual_seed(len(case))
+    if case == "offset 1":
+        idx = torch.randint(-1000, table.numel() + 1000, (196_610,),
+                            generator=g, dtype=torch.int32).to(xq.device)[1:]
+        assert idx.storage_offset() == 1
+    else:
+        idx = torch.randint(-2**31, 2**31 - 1, (int(case[2:]),), generator=g,
+                            dtype=torch.int32).to(xq.device)
+    n0 = K.LAUNCHES["pluto_lookup"]
+    got = ops.lookup(table, idx)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pluto_lookup"] == n0 + 1
+    assert torch.equal(got, lookup_ref(table, idx))
 
 
 def test_lookup_kernels_keep_narrow_dtypes_and_refuse_64_bit():
