@@ -61,12 +61,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                grids of event_detect and pluto_lookup);
 6. profile   — torch.profiler over one streamed pass at each size (and at
                D5 in each float mode): device time by kernel, the device's
-               busy share of the wall time, host time by op (traces in
+               busy share of the wall time (the union of the trace's kernel
+               and copy intervals), host time by op (traces in
                ``chiprun_out/``); then the D1 runs through the launcher
                (``repro_torch.launch.map_reads --use-kernels``, ``ms_fixed``
                and ``--mode rh2``);
-7. summary   — one JSON line of per-kernel results, then the last line
-               ``{"ok": true, "device": {...}}``.
+7. serve     — the serving path (SERVE_RUNS): ``serve_rsga`` with the
+               early-termination ladder, 32 streams x 64 reads in chunks of
+               32, at D5 and D1 ``ms_fixed`` (load 0.7, and 1.3 with
+               shedding and 4 tenants) and D5 ``ms_float``.  Launch counts
+               are zeroed just before each run and read just after; every
+               ladder stage must resolve the full-length plan; the run's
+               driver state must equal the same trace through the
+               reference plan on the card, and every admitted read
+               ``map_realtime``'s result.  Then a profiled D5 pass, and
+               each kernel against its plain version at every prefix's
+               shapes (R = 32, S = 256..1024, E = 51..192);
+8. summary   — one JSON line of per-kernel results, then the last line
+               ``{"ok": true, "device": {...}}``.  Every log line also goes
+               to ``chiprun_out/chip_smoke.log``.
 
 It imports neither JAX nor the JAX package.
 """
@@ -93,8 +106,12 @@ FLOAT_PATH = ("pluto_lookup", "pluto_lookup_rows", "segment_sum",
 PERSTAGE_PATH = ("event_detect", "pluto_lookup", "pluto_lookup_rows")
 
 
+LOG_LINES = []       # every log line, kept in chiprun_out/chip_smoke.log
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    LOG_LINES.append(msg)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -134,6 +151,63 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cheap_fused_bound(xq, bs, ent, c):
+    """Bytes this run's data needs (samples in, planes out, and the
+    distinct bucket offsets and entry rows its seeds probe) and the
+    operations of the detect..vote chain."""
+    import torch
+    from repro_torch.core import events, hashing, quantization
+    R, S = xq.shape
+    E, H = c.max_events, c.max_hits_per_seed
+    means, nev, _ = events.detect_quantized(xq, c)
+    ev_valid = torch.arange(E, device=xq.device) < nev.unsqueeze(-1)
+    sym = quantization.quantize_events(means, ev_valid, c)
+    keys, _ = hashing.pack_seeds(sym, nev, c)
+    bkt = (keys & (c.n_buckets - 1)).reshape(-1)
+    n_bs = torch.unique(torch.cat([bkt, bkt + 1])).numel()
+    idx = (bs[bkt].to(torch.int64)[:, None]
+           + torch.arange(H, device=xq.device)).clamp(max=ent.shape[1] - 1)
+    n_ent = torch.unique(idx.reshape(-1)).numel()
+    n_bytes = 4 * R * S + 2 * 4 * R * E * H + 4 * R * 9 + 4 * n_bs + 8 * n_ent
+    n_ops = R * (S * (4 * c.tstat_window + 16 + 4 * c.peak_window)
+                 + E * (2 * c.seed_width + 24 * 4 + 16) + E * H * 24)
+    return bound(n_bytes, n_ops)
+
+
+def sort_bound(N: int, L: int):
+    """Keys read and written once; compare-exchanges of the bitonic network
+    over the padded row."""
+    from repro_torch.kernels.bitonic_sort import ops as sort_ops
+    Lp = max(128, sort_ops._next_pow2(L))
+    lg = int(math.log2(Lp))
+    return bound(2 * 4 * N * L, 2 * N * (Lp // 2) * lg * (lg + 1) // 2)
+
+
+def dp_bound(N: int, A: int, band: int):
+    return bound(N * A * (4 + 4 + 1 + 4 + 4), 15 * N * A * band)
+
+
+def event_detect_bound(R: int, S: int, c):
+    E = c.max_events
+    return bound(4 * R * S + 4 * R * E + 4 * R,
+                 R * (S * (4 * c.tstat_window + 16 + 4 * c.peak_window)
+                      + 2 * E))
+
+
+def lookup_bound(table, idx):
+    """Indices in, one word a plane out, and the distinct table words."""
+    import torch
+    flat = idx.reshape(-1)
+    W = table.shape[0] if table.ndim == 2 else 1
+    Q = flat.numel()
+    n_words = torch.unique(flat).numel()
+    return bound(4 * Q + 4 * W * Q + 4 * W * n_words, 3 * Q), Q, n_words
+
+
+def segment_sum_bound(R: int, S: int, E: int):
+    return bound(8 * R * S + 8 * R * E, 2 * R * S)
 
 
 def assert_equal(name: str, got, want) -> float:
@@ -324,6 +398,38 @@ def anchor_counts(cfg, reads, arrays, dev):
     return torch.cat(out).cpu().numpy().astype(np.int64)
 
 
+_CAPTURED = {}
+
+
+def capture_backends() -> dict:
+    """Register (once) the "capture" backend of the sort and dp stages: it
+    keeps a copy of the inputs each call gets (in the returned dict) and
+    calls the kernel wrapper."""
+    from repro_torch.core import stages
+    from repro_torch.kernels.bitonic_sort import ops as sort_ops
+    from repro_torch.kernels.chain_dp import ops as dp_ops
+    if ("sort", "capture") in stages._REGISTRY:
+        return _CAPTURED
+
+    def sort(keys):
+        _CAPTURED["sort"] = (keys.clone(),)
+        return sort_ops.sort_rows(keys)
+
+    def dp(q, t, v, cfg):
+        _CAPTURED["dp"] = (q.clone(), t.clone(), v.clone())
+        return dp_ops.chain_dp(q, t, v, cfg)
+    stages.register_backend("sort", "capture", sort)
+    stages.register_backend("dp", "capture", dp)
+    return _CAPTURED
+
+
+def capture_plan(cfg):
+    """The kernels plan of ``cfg`` with its sort and dp captured."""
+    from repro_torch.core import stages
+    return tuple((s, "capture" if s in ("sort", "dp") else b)
+                 for s, b in stages.resolve_plan(cfg, stages.KERNELS))
+
+
 # The routes through the chaining gate that phase_routes forces, one chunk
 # each: (dataset, branch, sort width; None = the full E*H).  "full" chunks
 # hold CHUNK reads with anchors (above the 384-read capacity), "compact"
@@ -346,23 +452,10 @@ def phase_routes(data, dev):
     their inputs and call the kernel wrappers."""
     import numpy as np
     import torch
-    from repro_torch.core import map_chunk, pipeline, stages
+    from repro_torch.core import map_chunk, pipeline
     from repro_torch.core.index import index_arrays
-    from repro_torch.kernels.bitonic_sort import ops as sort_ops
-    from repro_torch.kernels.chain_dp import ops as dp_ops
 
-    captured = {}
-
-    def sort(keys):
-        captured["sort"] = (keys.clone(),)
-        return sort_ops.sort_rows(keys)
-
-    def dp(q, t, v, cfg):
-        captured["dp"] = (q.clone(), t.clone(), v.clone())
-        return dp_ops.chain_dp(q, t, v, cfg)
-    stages.register_backend("sort", "capture", sort)
-    stages.register_backend("dp", "capture", dp)
-
+    captured = capture_backends()
     rng = np.random.default_rng(0)
     per_set = {}
     inputs, results = {}, {}
@@ -397,8 +490,7 @@ def phase_routes(data, dev):
         sig = np.concatenate([reads.signals[np.resize(pool, n_surv)],
                               zero_real, flat])[rng.permutation(CHUNK)]
         x = torch.from_numpy(np.ascontiguousarray(sig)).to(dev)
-        plan = tuple((s, "capture" if s in ("sort", "dp") else b)
-                     for s, b in stages.resolve_plan(cfg, stages.KERNELS))
+        plan = capture_plan(cfg)
         captured.clear()
         pipeline.CHAIN_ROUTES.clear()
         got = map_chunk(x, arrays, cfg, plan=plan)
@@ -438,7 +530,7 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
     each route the main-path runs took."""
     import torch
     from repro_torch import kernels as K
-    from repro_torch.core import events, hashing, quantization
+    from repro_torch.core import events
     from repro_torch.core.index import index_arrays
     from repro_torch.kernels.bitonic_sort import ops as sort_ops
     from repro_torch.kernels.bitonic_sort.ref import sort_rows_ref
@@ -462,7 +554,6 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
                      ("generic", cfg.replace(max_hits_per_seed=12,
                                              vote_bins=3000))):
         Hc = c.max_hits_per_seed
-        EHc = E * Hc
         got = cf_ops.cheap_fused_rows(xq, bs, ent, c)
         want = cheap_fused_rows_ref(xq, bs, ent, c)
         torch.cuda.synchronize()
@@ -470,22 +561,7 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
                   in zip(("t_pos", "keep", "counters"), got, want))
         k_ms = time_ms(lambda: cf_ops.cheap_fused_rows(xq, bs, ent, c), 20)
         p_ms = time_ms(lambda: cheap_fused_rows_ref(xq, bs, ent, c), 3)
-        # bytes this run's data needs: samples in, planes out, and the
-        # distinct bucket offsets and entry rows its seeds probe
-        means, nev, _ = events.detect_quantized(xq, c)
-        ev_valid = torch.arange(E, device=dev) < nev.unsqueeze(-1)
-        sym = quantization.quantize_events(means, ev_valid, c)
-        keys, _ = hashing.pack_seeds(sym, nev, c)
-        bkt = (keys & (c.n_buckets - 1)).reshape(-1)
-        n_bs = torch.unique(torch.cat([bkt, bkt + 1])).numel()
-        idx = (bs[bkt].to(torch.int64)[:, None]
-               + torch.arange(Hc, device=dev)).clamp(max=ent.shape[1] - 1)
-        n_ent = torch.unique(idx.reshape(-1)).numel()
-        n_bytes = (4 * R * S + 2 * 4 * R * EHc + 4 * R * 9 + 4 * n_bs
-                   + 8 * n_ent)
-        n_ops = R * (S * (4 * c.tstat_window + 16 + 4 * c.peak_window)
-                     + E * (2 * c.seed_width + 24 * 4 + 16) + EHc * 24)
-        b_ms, b_by = bound(n_bytes, n_ops)
+        b_ms, b_by = cheap_fused_bound(xq, bs, ent, c)
         cheap_shapes.append(dict(
             route=label, on_main_path=label == "shipped",
             shape=f"D5 chunk 0: xq ({R}, {S}) int32, E*H = {E}*{Hc}, "
@@ -513,8 +589,7 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
         k_ms = time_ms(lambda: sort_ops.sort_rows(rows), 20)
         p_ms = time_ms(lambda: sort_rows_ref(rows), 20)
         l_ms = time_ms(lambda: torch.sort(rows, dim=-1), 20)
-        stages_ = int(math.log2(Lp)) * (int(math.log2(Lp)) + 1) // 2
-        b_ms, b_by = bound(2 * 4 * N * L, 2 * N * (Lp // 2) * stages_)
+        b_ms, b_by = sort_bound(N, L)
         sort_shapes.append(dict(
             route=label, on_main_path=main,
             shape=f"({N}, {L}) -> {Lp} lanes", max_abs_err=err, ms=k_ms,
@@ -532,8 +607,7 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
                   for n, a, b in zip(("f", "diag0"), g, want))
         k_ms = time_ms(lambda: dp_ops.chain_dp(sq, st, sv, cfg), 20)
         p_ms = time_ms(lambda: chain_dp_ref(sq, st, sv, cfg), 1)
-        b_ms, b_by = bound(N * A * (4 + 4 + 1 + 4 + 4),
-                           15 * N * A * cfg.chain_band)
+        b_ms, b_by = dp_bound(N, A, cfg.chain_band)
         dp_shapes.append(dict(
             route=label, on_main_path=main,
             shape=f"({N}, {A}), B={cfg.chain_band}", max_abs_err=err,
@@ -556,9 +630,7 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
                            sort_rows_ref(rows))
         k_ms = time_ms(lambda: sort_ops.sort_rows(rows), 20)
         l_ms = time_ms(lambda: torch.sort(rows, dim=-1), 20)
-        lg = int(math.log2(L))
-        b_ms, b_by = bound(2 * 4 * R * L, 2 * R * (L // 2) * lg * (lg + 1)
-                           // 2)
+        b_ms, b_by = sort_bound(R, L)
         sort_shapes.append(dict(
             route=f"edge rows {R}x{L}", on_main_path=False,
             shape=f"({R}, {L}) -> {L} lanes", max_abs_err=err, ms=k_ms,
@@ -577,8 +649,7 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
     err = max(assert_equal(f"chain_dp tie rows {n}", a, b)
               for n, a, b in zip(("f", "diag0"), g, want))
     k_ms = time_ms(lambda: dp_ops.chain_dp(sq, st, sv, cfg), 20)
-    b_ms, b_by = bound(R * A * (4 + 4 + 1 + 4 + 4),
-                       15 * R * A * cfg.chain_band)
+    b_ms, b_by = dp_bound(R, A, cfg.chain_band)
     dp_shapes.append(dict(
         route=f"tie rows {R}x{A}", on_main_path=False,
         shape=f"({R}, {A}), B={cfg.chain_band}", max_abs_err=err, ms=k_ms,
@@ -794,6 +865,26 @@ def event_detect_edges(label, xq, cfg, dev):
                     for n, x in edges.items()))
 
 
+def query_indices(xq, c, bs, ent):
+    """The indices the query issues for the reads ``xq``: the stacked
+    (bucket, bucket + 1) offsets into ``bucket_start`` and the H entry
+    columns from each bucket's start."""
+    import torch
+    from repro_torch.core import hashing, quantization, seeding
+    from repro_torch.kernels.event_detect.ref import event_detect_rows_ref
+    means, nev = event_detect_rows_ref(xq, c)
+    valid = torch.arange(c.max_events, device=xq.device) < nev.unsqueeze(-1)
+    keys, _ = hashing.pack_seeds(quantization.quantize_events(means, valid,
+                                                              c), nev, c)
+    bucket = (keys & (c.n_buckets - 1)).to(torch.int32)
+    bidx = torch.stack([bucket, bucket + 1])
+    idx = torch.clamp(seeding._take_clip(bs, bidx)[0].unsqueeze(-1)
+                      + torch.arange(c.max_hits_per_seed, dtype=torch.int32,
+                                     device=xq.device),
+                      max=ent.shape[1] - 1)
+    return bidx, idx
+
+
 def pluto_lookup_edges(table, dev):
     """pluto_lookup against its plain version on indices far outside
     [0, N-1], at Q = 1, 7 and 196,609 (odd: one query left over), and on an
@@ -842,7 +933,7 @@ def phase_new_kernels(cfg, reads, index, dev):
     the library call that computes the same function."""
     import torch
     from repro_torch import kernels as K
-    from repro_torch.core import events, hashing, quantization, seeding
+    from repro_torch.core import events
     from repro_torch.core.index import index_arrays
     from repro_torch.kernels.event_detect import ops as ed_ops
     from repro_torch.kernels.event_detect.ref import event_detect_rows_ref
@@ -853,7 +944,7 @@ def phase_new_kernels(cfg, reads, index, dev):
 
     arrays = index_arrays(index, dev)
     bs, ent = arrays["bucket_start"], arrays["entries_packed"]
-    R, E, H = CHUNK, cfg.max_events, cfg.max_hits_per_seed
+    R, E = CHUNK, cfg.max_events
     xq = events.early_quantize(torch.from_numpy(reads.signals[:R]).to(dev),
                                cfg)
     S = xq.shape[1]
@@ -870,9 +961,7 @@ def phase_new_kernels(cfg, reads, index, dev):
                   for n, g, w in zip(("means", "n_events"), got, want))
         k_ms = time_ms(lambda: ed_ops.event_detect_rows(xq, c), 20)
         p_ms = time_ms(lambda: event_detect_rows_ref(xq, c), 5)
-        b_ms, b_by = bound(4 * R * S + 4 * R * E + 4 * R,
-                           R * (S * (4 * c.tstat_window + 16
-                                     + 4 * c.peak_window) + 2 * E))
+        b_ms, b_by = event_detect_bound(R, S, c)
         ed_shapes.append(dict(
             route=label, on_main_path=label == "shipped",
             shape=f"D5 chunk 0: xq ({R}, {S}) int32 -> means ({R}, {E}), "
@@ -886,16 +975,7 @@ def phase_new_kernels(cfg, reads, index, dev):
     results["event_detect"] = dict(ed_shapes[0], by_shape=ed_shapes)
 
     # ---- the two lookups, on the indices D5's query issues ----------------
-    means, nev = event_detect_rows_ref(xq, cfg)
-    valid = torch.arange(E, device=dev) < nev.unsqueeze(-1)
-    keys, _ = hashing.pack_seeds(quantization.quantize_events(means, valid,
-                                                              cfg), nev, cfg)
-    bucket = (keys & (cfg.n_buckets - 1)).to(torch.int32)
-    bidx = torch.stack([bucket, bucket + 1])
-    start = seeding._take_clip(bs, bidx)[0]
-    idx = torch.clamp(start.unsqueeze(-1)
-                      + torch.arange(H, dtype=torch.int32, device=dev),
-                      max=ent.shape[1] - 1)
+    bidx, idx = query_indices(xq, cfg, bs, ent)
     pluto_lookup_edges(bs, dev)
     for name, table, i in (("pluto_lookup", bs, bidx),
                            ("pluto_lookup_rows", ent, idx)):
@@ -904,9 +984,7 @@ def phase_new_kernels(cfg, reads, index, dev):
         torch.cuda.synchronize()
         err = assert_equal(name, got, want_l)
         flat = i.reshape(-1).contiguous()
-        W = table.shape[0] if table.ndim == 2 else 1
-        Q = flat.numel()
-        n_words = torch.unique(flat).numel()
+        (b_ms, b_by), Q, n_words = lookup_bound(table, i)
         k_ms = time_ms(lambda: pl_ops.lookup(table, i), 20)
         p_ms = time_ms(lambda: lookup_ref(table, i), 20)
         if table.ndim == 1:
@@ -916,7 +994,6 @@ def phase_new_kernels(cfg, reads, index, dev):
         else:
             l_ms = time_ms(lambda: table.index_select(1, flat), 20)
             lib = "index_select"
-        b_ms, b_by = bound(4 * Q + 4 * W * Q + 4 * W * n_words, 3 * Q)
         results[name] = dict(
             shape=f"D5 chunk 0: table {tuple(table.shape)}, {Q} indices "
                   f"({n_words} distinct)", max_abs_err=err, ms=k_ms,
@@ -954,7 +1031,7 @@ def phase_new_kernels(cfg, reads, index, dev):
         flat_x = x.reshape(-1)
         l_ms = time_ms(lambda: torch.zeros(R * E, device=dev).index_add_(
             0, flat_e, flat_x), 20)
-        b_ms, b_by = bound(8 * R * S + 8 * R * E, 2 * R * S)
+        b_ms, b_by = segment_sum_bound(R, S, E)
         longest = int(max(torch.unique_consecutive(r, return_counts=True)[1]
                           .max() for r in eid.cpu()))
         seg_shapes.append(dict(
@@ -970,6 +1047,55 @@ def phase_new_kernels(cfg, reads, index, dev):
     results["segment_sum"] = dict(seg_shapes[0], by_shape=seg_shapes)
     K.reset_launches()
     return results
+
+
+def profile_summary(prof, wall: float, label: str, n_chunks: int,
+                    trace_name: str) -> dict:
+    """What one profiled pass shows: the device's busy time (the union of
+    its kernel, copy and memset intervals in the exported trace; the sum
+    of every op's self device time would count a kernel under its aten op
+    and again under its own name), device time by kernel, host time by
+    op, kernel launches and stream syncs.  The trace goes to
+    ``chiprun_out/trace_name``."""
+    import gzip
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / trace_name
+    prof.export_chrome_trace(str(path))
+    with (gzip.open if trace_name.endswith(".gz") else open)(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    spans, by_kernel = [], {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            t, d = float(e["ts"]), float(e.get("dur", 0))
+            spans.append((t, t + d))
+            n, us = by_kernel.get(e["name"], (0, 0.0))
+            by_kernel[e["name"]] = (n + 1, us + d)
+    busy_us, end = 0.0, -math.inf
+    for t0, t1 in sorted(spans):
+        busy_us += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    busy = busy_us / 1e6
+    ev = prof.key_averages()
+    calls = {e.key: e.count for e in ev}
+    syncs = calls.get("cudaStreamSynchronize", 0)
+    launches = calls.get("cudaLaunchKernel", 0)
+    log(f"[profile] {label}: wall {wall * 1e3:.3f} ms under the profiler, "
+        f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), "
+        f"{syncs} stream syncs and {launches} kernel launches for "
+        f"{n_chunks} chunks")
+    for name, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1]
+                                )[:12]:
+        log(f"[profile]   device {us / 1e3:9.3f} ms  x{n:<5} {name[:90]}")
+    for e in sorted(ev, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:10]:
+        log(f"[profile]   host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
+            f"x{e.count:<5} {e.key[:90]}")
+    return dict(wall_s=wall, device_busy_s=busy, busy_share=busy / wall,
+                n_chunks=n_chunks, stream_syncs=syncs,
+                kernel_launches=launches)
 
 
 def phase_profile(key, cfg, ref, reads, index, dev):
@@ -994,33 +1120,8 @@ def phase_profile(key, cfg, ref, reads, index, dev):
         stream()
         wall = time.time() - t0
     K.reset_launches()
-    ev = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    busy = sum(dev_us(e) for e in ev) / 1e6
-    calls = {e.key: e.count for e in ev}
-    syncs = calls.get("cudaStreamSynchronize", 0)
-    launches = calls.get("cudaLaunchKernel", 0)
-    log(f"[profile] {key} {cfg.mode}: wall {wall * 1e3:.3f} ms under the "
-        f"profiler, "
-        f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), "
-        f"{syncs} stream syncs and {launches} kernel launches for "
-        f"{READS // CHUNK} chunks")
-    for e in sorted(ev, key=dev_us, reverse=True)[:12]:
-        if dev_us(e):
-            log(f"[profile]   device {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5} "
-                f"{e.key[:90]}")
-    for e in sorted(ev, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:10]:
-        log(f"[profile]   host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
-            f"x{e.count:<5} {e.key[:90]}")
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / f"trace_{key}_{cfg.mode}.json"))
-    return dict(wall_s=wall, device_busy_s=busy, stream_syncs=syncs,
-                kernel_launches=launches)
+    return profile_summary(prof, wall, f"{key} {cfg.mode}", READS // CHUNK,
+                           f"trace_{key}_{cfg.mode}.json")
 
 
 def phase_launcher():
@@ -1048,7 +1149,332 @@ def phase_launcher():
     return out
 
 
+# ---- serving ---------------------------------------------------------------
+SERVE_CHUNK = 32
+SERVE_ARGS = ("--streams", "32", "--reads-per-stream", "64", "--chunk",
+              str(SERVE_CHUNK), "--early-term")
+# (dataset, mode, the launcher's arguments beyond SERVE_ARGS)
+SERVE_RUNS = (("D5", "ms_fixed", ("--load", "0.7")),
+              ("D5", "ms_fixed", ("--load", "1.3", "--shed", "--tenants", "4",
+                                  "--skew", "1.0")),
+              ("D1", "ms_fixed", ("--load", "0.7")),
+              ("D1", "ms_fixed", ("--load", "1.3", "--shed", "--tenants", "4",
+                                  "--skew", "1.0")),
+              ("D5", "ms_float", ("--load", "0.7")))
+PREFIXES = (256, 512, 768, 1024)
+
+
+def driver_state(sd) -> str:
+    """Everything a serving run decides — every stream's state and report,
+    the class and tenant reports, the event trace, the virtual clock, the
+    chunk counts and the summed counters — as one JSON text with sorted
+    keys (floats by their shortest repr, so equal text is equal bits; NaN
+    and inf included)."""
+    import dataclasses
+    return json.dumps(dict(
+        streams={k: dataclasses.asdict(v) for k, v in sd._streams.items()},
+        report={k: dataclasses.asdict(v) for k, v in sd.report().items()},
+        classes={str(k): dataclasses.asdict(v)
+                 for k, v in sd.class_report().items()},
+        tenants={str(k): dataclasses.asdict(v)
+                 for k, v in sd.tenant_report().items()},
+        events=sd.events, clock=sd.clock, counters=sd.counters,
+        n_chunks=sd.n_chunks, n_pad_rows=sd.n_pad_rows, n_shed=sd.n_shed),
+        sort_keys=True)
+
+
+def check_stage_plans(label, mapper, stages_):
+    """The backend each ladder stage resolved to: the full-length config's
+    plan at every prefix, with every stage a kernel can take on a kernel
+    for ms_fixed (detect and the fused kernel stay on the reference in the
+    float modes, as in the JAX package's plan)."""
+    from repro_torch.core.realtime import stage_cfg
+    full = dict(mapper.plan)
+    want_ref = {"detect", "fused"} if mapper.cfg.mode != "ms_fixed" else set()
+    out = {}
+    for L in stages_:
+        plan = dict(mapper.with_cfg(stage_cfg(mapper.cfg, L)).plan)
+        out[L] = plan
+        fell = [k for k, v in plan.items()
+                if (v == "reference") != (k in want_ref)]
+        if plan != full or fell:
+            raise AssertionError(f"{label}: the stage at {L} samples "
+                                 f"resolved {plan} (full length: {full}; "
+                                 f"off the expected backend: {fell})")
+    log(f"[serve] {label}: every ladder stage {list(stages_)} resolved "
+        f"{full}")
+    return out
+
+
+def serve_run(key, mode, extra, dev):
+    """One run of the serving launcher (``serve_rsga.run``, the kernels
+    plan) with launch and route counts zeroed just before and read just
+    after; the same trace through the reference plan on the card must give
+    the same driver state, and every admitted read the result
+    ``map_realtime`` gives it."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import Mapper, ServeDriver, pipeline
+    from repro_torch.core.realtime import map_realtime
+    from repro_torch.launch import serve_rsga
+    label = f"{key} {mode} {' '.join(extra)}"
+    argv = ["--dataset", key, "--mode", mode, *SERVE_ARGS, *extra,
+            "--use-kernels"]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    pipeline.CHAIN_ROUTES.clear()
+    served = serve_rsga.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    routes = dict(pipeline.CHAIN_ROUTES)
+    sd = served.driver
+    check_launches(f"serve {label}", launches,
+                   FUSED_PATH if mode == "ms_fixed" else FLOAT_PATH)
+    plans = check_stage_plans(label, sd.mapper, sd.stages)
+
+    # the same trace through the reference plan, on the card
+    K.reset_launches()
+    plain = ServeDriver(Mapper(served.index, served.cfg, use_kernels=False,
+                               device=dev), **served.serve_kw)
+    t0 = time.time()
+    plain.serve_trace(served.trace)
+    plain_wall = time.time() - t0
+    check_launches(f"serve {label} reference plan", K.LAUNCHES, ())
+    if driver_state(sd) != driver_state(plain):
+        raise AssertionError(f"serve {label}: the kernels plan's driver "
+                             "state differs from the reference plan's")
+
+    # every admitted read against map_realtime on the same reads: trace
+    # row k (arrival order) carries read k
+    rt = map_realtime(served.reads.signals, served.index, served.cfg,
+                      chunk=SERVE_CHUNK, use_kernels=True, device=dev)
+    rows = {}
+    for k, row in enumerate(served.trace):
+        rows.setdefault(row[1], []).append(k)
+    n_checked = 0
+    for sid, ks in rows.items():
+        st, out = sd.stream(sid), sd.results(sid)
+        adm = np.asarray(st.admitted)
+        ks = np.asarray(ks)[adm]
+        for f, got in (("t_start", out.t_start[adm]),
+                       ("score", out.score[adm]),
+                       ("mapped", out.mapped[adm]),
+                       ("samples_used", np.asarray(st.samples_used)[adm]),
+                       ("stage_of", np.asarray(st.stage_of)[adm])):
+            if not np.array_equal(got, getattr(rt, f)[ks]):
+                raise AssertionError(f"serve {label}: stream {sid} {f} "
+                                     "differs from map_realtime")
+        n_checked += int(adm.sum())
+    K.reset_launches()
+
+    n_reads = len(served.trace)
+    lat = np.asarray([x for st in sd._streams.values()
+                      for x, a in zip(st.latency, st.admitted)
+                      if a and math.isfinite(x)])
+    if not n_checked or sd.counters.get("n_reads", 0) <= 0:
+        raise AssertionError(f"serve {label}: no read was served")
+    res = dict(
+        dataset=key, mode=mode, args=list(extra), reads=n_reads,
+        streams=len(rows), chunk=SERVE_CHUNK, wall_s=served.wall_s,
+        reads_per_s=n_reads / served.wall_s,
+        streams_per_s=len(rows) / served.wall_s,
+        plain_wall_s=plain_wall, virtual_makespan=sd.clock,
+        p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)),
+        n_chunks=sd.n_chunks, n_pad_rows=sd.n_pad_rows, n_shed=sd.n_shed,
+        mapped=int(sum(r.n_mapped for r in served.reports.values())),
+        checked_against_map_realtime=n_checked, launches=launches,
+        launches_per_chunk=sum(launches.values()) / sd.n_chunks,
+        chain_routes={f"{b}/{r}x{w}": n
+                      for (b, r, w), n in sorted(routes.items())},
+        stage_plans={str(k): v for k, v in plans.items()},
+        counters=sd.counters)
+    log(f"[serve] {label}: {n_reads} reads over {len(rows)} streams in "
+        f"{served.wall_s:.3f} s wall ({res['reads_per_s']:.1f} reads/s, "
+        f"{res['streams_per_s']:.2f} streams/s; reference plan "
+        f"{plain_wall:.1f} s), {sd.n_chunks} chunks of {SERVE_CHUNK} "
+        f"({sd.n_pad_rows} pad rows), {sd.n_shed} shed, virtual makespan "
+        f"{sd.clock:.2f}, p50 {res['p50']:.3f} p99 {res['p99']:.3f} "
+        f"(virtual units); kernel launches {launches} "
+        f"({res['launches_per_chunk']:.2f} a chunk); equals the reference "
+        f"plan and map_realtime ({n_checked} admitted reads)")
+    log(f"[serve] {label}: chain routes {res['chain_routes']}")
+    return res, served
+
+
+def serve_profile(served, dev):
+    """torch.profiler over one more pass of the served trace through a
+    warmed kernels-plan driver (``profile_summary``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    from repro_torch.core import Mapper, ServeDriver
+    mapper = Mapper(served.index, served.cfg, use_kernels=True, device=dev)
+    ServeDriver(mapper, **served.serve_kw).serve_trace(served.trace[:64])
+    torch.cuda.synchronize()
+    sd = ServeDriver(mapper, **served.serve_kw)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        sd.serve_trace(served.trace)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    K.reset_launches()
+    # gzipped: a serving pass holds some 45,000 launches
+    out = profile_summary(prof, wall, f"serve D5 {served.cfg.mode}",
+                          sd.n_chunks, "trace_serve_D5.json.gz")
+    log(f"[profile] serve D5 {served.cfg.mode}: "
+        f"{out['kernel_launches'] / sd.n_chunks:.1f} kernel launches and "
+        f"{out['stream_syncs'] / sd.n_chunks:.2f} stream syncs a chunk")
+    return out
+
+
+def serve_kernels(cfg, reads, index, dev):
+    """Every kernel against its plain version at the serving shapes: one
+    chunk of SERVE_CHUNK D5 reads cut to each ladder prefix
+    (``stage_cfg``: S = 256..1024 samples, E = 51..192 events), the sort
+    and the DP on the inputs ``map_chunk`` hands them there, the lookups
+    on the indices its query issues and the segment sum on its ms_float
+    detection.  Tolerance: exact.  Returns each kernel's records, one a
+    prefix."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import events, map_chunk, pipeline
+    from repro_torch.core.index import index_arrays
+    from repro_torch.core.realtime import stage_cfg
+    from repro_torch.kernels.bitonic_sort import ops as sort_ops
+    from repro_torch.kernels.bitonic_sort.ref import sort_rows_ref
+    from repro_torch.kernels.chain_dp import ops as dp_ops
+    from repro_torch.kernels.chain_dp.ref import chain_dp_ref
+    from repro_torch.kernels.cheap_fused import ops as cf_ops
+    from repro_torch.kernels.cheap_fused.ref import cheap_fused_rows_ref
+    from repro_torch.kernels.event_detect import ops as ed_ops
+    from repro_torch.kernels.event_detect.ref import event_detect_rows_ref
+    from repro_torch.kernels.pluto_lookup import ops as pl_ops
+    from repro_torch.kernels.pluto_lookup.ref import lookup_ref
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.kernels.segment_sum.ref import segment_sum_ref
+
+    arrays = index_arrays(index, dev)
+    bs, ent = arrays["bucket_start"], arrays["entries_packed"]
+    R = SERVE_CHUNK
+    captured = capture_backends()
+    out = {k: [] for k in K.LAUNCHES}
+
+    def record(name, label, got, want, fn, plain, reps, b, lib=None,
+               lib_name=None):
+        torch.cuda.synchronize()
+        err = max(assert_equal(f"serve {name} {label} {i}", g, w)
+                  for i, (g, w) in enumerate(zip(got, want)))
+        k_ms = time_ms(fn, 20)
+        p_ms = time_ms(plain, reps)
+        l_ms = time_ms(lib, 20) if lib is not None else None
+        out[name].append(dict(route=f"serve {label}", on_main_path=True,
+                              shape=label, max_abs_err=err, ms=k_ms,
+                              plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
+                              library_ms=l_ms, library=lib_name))
+        log(f"[serve-kernels] {name} {label} equal; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms"
+            + (f", {lib_name} {l_ms:.4f} ms" if lib is not None else "")
+            + f", bound {b[0]:.5f} ms ({b[1]})")
+
+    for L in PREFIXES:
+        c = stage_cfg(cfg, L)
+        E = c.max_events
+        sig = torch.from_numpy(reads.signals[:R, :L].copy()).to(dev)
+        xq = events.early_quantize(sig, c)
+        tag = f"L={L}: ({R}, {L}), E={E}"
+        record("cheap_fused", tag,
+               cf_ops.cheap_fused_rows(xq, bs, ent, c),
+               cheap_fused_rows_ref(xq, bs, ent, c),
+               lambda: cf_ops.cheap_fused_rows(xq, bs, ent, c),
+               lambda: cheap_fused_rows_ref(xq, bs, ent, c), 3,
+               cheap_fused_bound(xq, bs, ent, c))
+        record("event_detect", tag, ed_ops.event_detect_rows(xq, c),
+               event_detect_rows_ref(xq, c),
+               lambda: ed_ops.event_detect_rows(xq, c),
+               lambda: event_detect_rows_ref(xq, c), 5,
+               event_detect_bound(R, L, c))
+
+        # the sort and the DP on the inputs this prefix's chunk gives them
+        captured.clear()
+        pipeline.CHAIN_ROUTES.clear()
+        map_chunk(sig, arrays, c, plan=capture_plan(c))
+        torch.cuda.synchronize()
+        (branch, n_rows, width), = pipeline.CHAIN_ROUTES
+        if "sort" in captured:
+            rows, = captured["sort"]
+            sq, st, sv = captured["dp"]
+            rt = f"{tag}, route {branch}/{n_rows}x{width}"
+            record("bitonic_sort", rt, (sort_ops.sort_rows(rows),),
+                   (sort_rows_ref(rows),),
+                   lambda: sort_ops.sort_rows(rows),
+                   lambda: sort_rows_ref(rows), 20, sort_bound(*rows.shape),
+                   lambda: torch.sort(rows, dim=-1), "torch.sort")
+            record("chain_dp", rt, dp_ops.chain_dp(sq, st, sv, c),
+                   chain_dp_ref(sq, st, sv, c),
+                   lambda: dp_ops.chain_dp(sq, st, sv, c),
+                   lambda: chain_dp_ref(sq, st, sv, c), 1,
+                   dp_bound(*sq.shape, c.chain_band))
+
+        # the float modes' kernels at this prefix's shapes: the lookups on
+        # the indices its query issues, the segment sum on its ms_float
+        # detection
+        bidx, idx = query_indices(xq, c, bs, ent)
+        for name, table, i, lib_name in (
+                ("pluto_lookup", bs, bidx, "torch.take"),
+                ("pluto_lookup_rows", ent, idx, "index_select")):
+            flat = i.reshape(-1).contiguous()
+            flat64 = flat.to(torch.int64)
+            lib = ((lambda: torch.take(table, flat64)) if table.ndim == 1
+                   else (lambda: table.index_select(1, flat)))
+            record(name, tag, (pl_ops.lookup(table, i),),
+                   (lookup_ref(table, i),),
+                   lambda: pl_ops.lookup(table, i),
+                   lambda: lookup_ref(table, i), 20,
+                   lookup_bound(table, i)[0], lib, lib_name)
+        cf = c.with_mode("ms_float")
+        x_f = events.dequantize_fixed(xq, cf.frac_bits)
+        eid = events._event_ids(events.boundary_mask_float(x_f, cf), E)
+        flat_e = (eid + E * torch.arange(R, device=dev, dtype=torch.int32)[
+            :, None]).reshape(-1)
+        record("segment_sum", tag, ss_ops.segment_sum(x_f, eid, E, L),
+               segment_sum_ref(x_f, eid, E, L),
+               lambda: ss_ops.segment_sum(x_f, eid, E, L),
+               lambda: segment_sum_ref(x_f, eid, E, L), 2,
+               segment_sum_bound(R, L, E),
+               lambda: torch.zeros(R * E, device=dev).index_add_(
+                   0, flat_e, x_f.reshape(-1)), "index_add_ (atomic order)")
+    K.reset_launches()
+    return out
+
+
+def phase_serve(data, dev):
+    """The serving path: every run of SERVE_RUNS through the launcher, a
+    profiled pass of the first (D5) run's trace, and the kernels at the
+    serving shapes."""
+    runs, first = {}, None
+    for key, mode, extra in SERVE_RUNS:
+        res, served = serve_run(key, mode, extra, dev)
+        runs[f"{key} {mode} {' '.join(extra)}"] = res
+        first = first or served
+    profile_ = serve_profile(first, dev)
+    cfg, _, reads, index = data["D5"]
+    return dict(runs=runs, profile=profile_,
+                kernels=serve_kernels(cfg, reads, index, dev))
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:
+        if LOG_LINES:
+            out = ROOT / "chiprun_out"
+            out.mkdir(exist_ok=True)
+            (out / "chip_smoke.log").write_text("\n".join(LOG_LINES) + "\n")
+
+
+def run() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1061,32 +1487,51 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_all = time.time()
 
-    name, smi = phase_device()
-    build_record = phase_build()
-    data = {k: make_dataset(k) for k in ("D1", "D5")}
-    maps = {k: run_map(k, *data[k], dev) for k in ("D1", "D5")}
-    floats = phase_float(data, dev)
-    perstage = phase_perstage(data, dev)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        seconds[name] = time.time() - t0
+        log(f"[phase] {name} {seconds[name]:.1f} s")
+        return out
+
+    name, smi = timed("device", phase_device)
+    build_record = timed("build", phase_build)
+    data = timed("datasets", lambda: {k: make_dataset(k)
+                                      for k in ("D1", "D5")})
+    maps = timed("map", lambda: {k: run_map(k, *data[k], dev)
+                                 for k in ("D1", "D5")})
+    floats = timed("float", phase_float, data, dev)
+    perstage = timed("perstage", phase_perstage, data, dev)
     main_routes = {(k, b, w) for k in maps
                    for (b, _, w) in maps[k]["route_keys"]}
-    inputs, routes = phase_routes(data, dev)
-    kern = phase_kernels(*[data["D5"][i] for i in (0, 2, 3)], inputs,
-                         main_routes, dev)
-    kern.update(phase_new_kernels(*[data["D5"][i] for i in (0, 2, 3)], dev))
-    floor = launch_floor(dev)
-    for k in maps:
-        maps[k]["profile"] = phase_profile(k, *data[k], dev)
-    for mode in FLOAT_MODES:
-        cfg, ref, reads, index = data["D5"]
-        floats[f"D5 {mode}"]["profile"] = phase_profile(
-            "D5", cfg.with_mode(mode), ref, reads, index, dev)
-    launcher = phase_launcher()
+    inputs, routes = timed("routes", phase_routes, data, dev)
+    kern = timed("kernels", phase_kernels,
+                 *[data["D5"][i] for i in (0, 2, 3)], inputs, main_routes,
+                 dev)
+    kern.update(timed("kernels (per-stage and float)", phase_new_kernels,
+                      *[data["D5"][i] for i in (0, 2, 3)], dev))
+    floor = timed("launch floor", launch_floor, dev)
+
+    def profiles():
+        for k in maps:
+            maps[k]["profile"] = phase_profile(k, *data[k], dev)
+        for mode in FLOAT_MODES:
+            cfg, ref, reads, index = data["D5"]
+            floats[f"D5 {mode}"]["profile"] = phase_profile(
+                "D5", cfg.with_mode(mode), ref, reads, index, dev)
+    timed("profile", profiles)
+    launcher = timed("launcher", phase_launcher)
+    serve = timed("serve", phase_serve, data, dev)
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)
     runs = {**{f"{d} ms_fixed": maps[d]["launches"] for d in maps},
             **{k: v["launches"] for k, v in floats.items()},
-            **{f"{d} per-stage": v["launches"] for d, v in perstage.items()}}
+            **{f"{d} per-stage": v["launches"] for d, v in perstage.items()},
+            **{f"serve {k}": v["launches"]
+               for k, v in serve["runs"].items()}}
     sources = {
         "cheap_fused": ("src/repro_torch/csrc/cheap_fused.cu",
                         "src/repro/kernels/cheap_fused/cheap_fused.py:367",
@@ -1125,6 +1570,7 @@ def main() -> int:
             floor_ms=floor["1x32"], sequential_ms=r.get("sequential_ms"),
             library_ms=r["library_ms"], library=r.get("library"),
             shape=r["shape"], by_shape=r.get("by_shape"),
+            serving_shapes=serve["kernels"][k],
             helper=k == "segment_sum"))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1132,13 +1578,20 @@ def main() -> int:
         dict(device=name, nvidia_smi=smi, build=build_record, kernels=summary,
              launch_floor_ms=floor, map=maps,
              float=floats, perstage=perstage, launcher=launcher,
-             routes=routes, seconds=time.time() - t_all), indent=1,
+             routes=routes, serve=serve, phase_seconds=seconds,
+             seconds=time.time() - t_all),
+        indent=1,
         default=str))
     log(f"[map-summary] " + json.dumps(
         {name_: {k: res[k] for k in ("reads_per_s", "f1",
                                      "max_memory_allocated")}
          for name_, res in [*((f"{d} ms_fixed", maps[d]) for d in maps),
                             *floats.items()]}))
+    log(f"[serve-summary] " + json.dumps(
+        {k: {f: v[f] for f in ("reads_per_s", "streams_per_s",
+                               "virtual_makespan", "p50", "p99",
+                               "launches_per_chunk")}
+         for k, v in serve["runs"].items()}))
     log(f"[seconds] {time.time() - t_all:.1f}")
     log(smi)
     print(json.dumps({"kernels": summary}))

@@ -1,4 +1,4 @@
-"""MARS core in PyTorch: the mapping path in all three modes.
+"""MARS core in PyTorch: the mapping path in all three modes, and serving.
 
 Public API:
     MarsConfig            static pipeline configuration
@@ -7,18 +7,30 @@ Public API:
     stages                backend registry + plan resolution
     Mapper / map_chunk    online read mapping (CUDA by default)
     driver                streaming host driver + ProgressLog
+    ServeDriver           continuous-batching multi-stream serving driver
+    SLOClass              serving class (priority/deadline/shed contract)
+    TenantBudget          per-tenant fair-share shed budget (token bucket)
+    FaultPlan             seeded storage-fault injection plan
     score_accuracy        P/R/F1 vs. ground truth
+    costmodel             unified Workload->cost interface (analytic | sim)
 """
-from repro_torch.core import driver, stages
+from repro_torch.core import costmodel, driver, stages
 from repro_torch.core.config import (DEFAULT, MODE_MS_FIXED, MODE_MS_FLOAT,
                                      MODE_RH2, MODES, MarsConfig)
+from repro_torch.core.faults import (FaultPlan, InjectedPrefetchError,
+                                     TileReadError, sample_fault_plans)
 from repro_torch.core.index import (Index, build_index, index_arrays,
                                     index_from_numpy)
 from repro_torch.core.pipeline import (MapOutput, Mapper, map_chunk,
                                        score_accuracy)
+from repro_torch.core.server import (ClassReport, ServeDriver, SLOClass,
+                                     StreamReport, TenantBudget, TenantReport)
 
 __all__ = [
     "DEFAULT", "MODES", "MODE_RH2", "MODE_MS_FLOAT", "MODE_MS_FIXED",
     "MarsConfig", "Index", "build_index", "index_arrays", "index_from_numpy",
     "MapOutput", "Mapper", "map_chunk", "driver", "stages", "score_accuracy",
+    "costmodel", "ServeDriver", "StreamReport", "SLOClass", "ClassReport",
+    "TenantBudget", "TenantReport", "FaultPlan", "TileReadError",
+    "InjectedPrefetchError", "sample_fault_plans",
 ]

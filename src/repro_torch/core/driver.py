@@ -18,7 +18,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
-from typing import Callable, Dict, Iterable, Iterator, List, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,8 @@ def array_chunks(signals: np.ndarray, chunk: int,
 
 def stream_map(map_fn: Callable[[np.ndarray, int], "MapOutput"],
                chunks: Iterable[Chunk],
+               trace: Optional[list] = None,
+               clock: Optional[Callable[[], float]] = None,
                ) -> Iterator[Tuple[int, int, "MapOutput"]]:
     """Double-buffered device loop.
 
@@ -55,16 +57,38 @@ def stream_map(map_fn: Callable[[np.ndarray, int], "MapOutput"],
     (``Mapper.chunk_fn``).  The next chunk is dispatched before the previous
     chunk's results are copied to the host.  Yields (chunk_idx, n_valid,
     MapOutput) with per-read numpy fields trimmed to ``n_valid`` rows and
-    int counters.
+    int counters.  A chunk source is pulled only after the previous chunk
+    was dispatched, never ahead: live sources (the serving driver's ready
+    queue, core/server.py) depend on that pull order.
+
+    With ``trace`` (a list) the loop appends the replayable chunk-event
+    records ``("dispatch", t, ci, n_valid)`` after each dispatch and
+    ``("complete", t, ci, n_valid)`` when the chunk's results reach the
+    host (the batch-side half of ``sim.serve_sim``'s trace format).  ``t``
+    comes from ``clock()`` when given (e.g. a virtual clock), else it
+    counts dispatches.  Recording changes neither pull order nor outputs.
     """
+    n_seen = 0
+
+    def _note(kind: str, ci: int, n_valid: int) -> None:
+        if trace is not None:
+            trace.append((kind, clock() if clock is not None
+                          else float(n_seen), ci, n_valid))
+
+    def _emit(p):
+        _note("complete", p[0], p[1])
+        return _to_host(*p)
+
     pending = None
     for ci, n_valid, sig in chunks:
         out = map_fn(sig, n_valid)
+        n_seen += 1
+        _note("dispatch", ci, n_valid)
         if pending is not None:
-            yield _to_host(*pending)
+            yield _emit(pending)
         pending = (ci, n_valid, out)
     if pending is not None:
-        yield _to_host(*pending)
+        yield _emit(pending)
 
 
 def _to_host(ci: int, n_valid: int, out) -> Tuple[int, int, "MapOutput"]:

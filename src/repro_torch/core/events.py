@@ -239,12 +239,9 @@ def boundary_mask_fixed(xq: torch.Tensor, cfg: MarsConfig) -> torch.Tensor:
 def _peak_pick(score: torch.Tensor, above: torch.Tensor,
                cfg: MarsConfig) -> torch.Tensor:
     """Local-max suppression: keep i if above[i] and score[i] is the max in
-    a +-peak_window neighborhood (ties broken toward the left).  Only the
-    ``min_dwell <= 1`` rule exists here (the peak window enforces spacing)."""
-    if cfg.min_dwell > 1:
-        raise NotImplementedError(
-            "min_dwell > 1 (the sequential dwell scan) is not ported; the "
-            "MARS configurations use min_dwell=1")
+    a +-peak_window neighborhood (ties broken toward the left).  With
+    ``min_dwell > 1`` a greedy left-to-right scan then drops every peak
+    closer than ``min_dwell`` samples to the last one kept."""
     r = cfg.peak_window
     S = score.shape[-1]
     pad = torch.full_like(score[..., :r], float("-inf"))
@@ -256,7 +253,26 @@ def _peak_pick(score: torch.Tensor, above: torch.Tensor,
         right = padded[..., r + d:r + d + S]                # score[i+d]
         wmax = torch.maximum(wmax, torch.maximum(left, right))
         lmax = torch.maximum(lmax, left)
-    return (score >= wmax) & (score >= lmax) & above
+    is_peak = (score >= wmax) & (score >= lmax) & above
+    if cfg.min_dwell <= 1:
+        # the peak window already enforces spacing
+        return is_peak
+    return _dwell_scan(is_peak, cfg.min_dwell)
+
+
+def _dwell_scan(is_peak: torch.Tensor, min_dwell: int) -> torch.Tensor:
+    """The reference's sequential dwell rule (a ``lax.scan`` over sample
+    positions), every row at once: keep peak i when i - last >= min_dwell,
+    where ``last`` is the position of the last peak kept (initially
+    -min_dwell)."""
+    last = torch.full(is_peak.shape[:-1], -min_dwell, dtype=torch.int64,
+                      device=is_peak.device)
+    kept = torch.zeros_like(is_peak)
+    for i in range(is_peak.shape[-1]):
+        keep = is_peak[..., i] & (i - last >= min_dwell)
+        kept[..., i] = keep
+        last = torch.where(keep, i, last)
+    return kept
 
 
 # --------------------------------------------------------------------------- #

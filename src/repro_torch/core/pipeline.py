@@ -255,6 +255,11 @@ class Mapper:
     layout exists in this package so far.
     """
 
+    # The tiered index's host-to-device tile cache; this package has only
+    # the resident index, so there is none (the serving driver and launcher
+    # read it).
+    cache = None
+
     def __init__(self, index: Index, cfg: Optional[MarsConfig] = None,
                  use_kernels: bool = False, device="cuda"):
         self.device = check_device(device)
@@ -315,6 +320,14 @@ class Mapper:
         stream = driver.stream_map(self.chunk_fn(),
                                    driver.array_chunks(signals, chunk))
         return driver.collect(stream)
+
+    def serve(self, **kw):
+        """A continuous-batching ``ServeDriver`` over this mapper: many
+        concurrent client streams packed into this pipeline's chunks
+        (core/server.py).  Results are bit-identical to ``map_signals``
+        on each stream's reads for any interleaving."""
+        from repro_torch.core.server import ServeDriver
+        return ServeDriver(self, **kw)
 
 
 def score_accuracy(out: MapOutput, true_pos: np.ndarray,

@@ -33,7 +33,8 @@ def cheap_fused_rows(xq: torch.Tensor, bucket_start: torch.Tensor,
                    (2, None))
     if not _fused_supports(cfg):
         raise ValueError("cheap_fused: the kernel implements the fixed-point "
-                         "path whose integer boundary test fits int32")
+                         "path whose integer boundary test fits int32, "
+                         "with min_dwell <= 1")
     if xq.device.type == "cpu":
         return cheap_fused_rows_ref(xq, bucket_start, entries_packed, cfg)
     return _cheap_fused_kernel(xq, bucket_start, entries_packed, cfg)
@@ -101,9 +102,11 @@ def cheap_fused(signals: torch.Tensor, index: Dict[str, torch.Tensor],
 
 
 def _fused_supports(cfg: MarsConfig) -> bool:
-    """The fixed-point path, whose integer boundary test fits int32."""
+    """The fixed-point path, whose integer boundary test fits int32, with
+    the peak window alone spacing the boundaries (``min_dwell <= 1``: the
+    kernel has no sequential dwell scan)."""
     return (cfg.fixed_point and cfg.early_quantization
-            and ev.fixed_tstat_in_range(cfg))
+            and ev.fixed_tstat_in_range(cfg) and cfg.min_dwell <= 1)
 
 
 stages.register_fused_cheap(stages.KERNELS, cheap_fused,

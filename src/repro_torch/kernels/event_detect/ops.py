@@ -25,7 +25,7 @@ def event_detect_rows(xq: torch.Tensor, cfg: MarsConfig):
     if not _detect_supports(cfg):
         raise ValueError("event_detect: the kernel implements the "
                          "fixed-point path whose integer boundary test "
-                         "fits int32")
+                         "fits int32, with min_dwell <= 1")
     if xq.device.type == "cpu":
         return event_detect_rows_ref(xq, cfg)
     return _event_detect_kernel(xq, cfg)
@@ -57,9 +57,11 @@ def event_detect(signals: torch.Tensor, cfg: MarsConfig):
 
 
 def _detect_supports(cfg: MarsConfig) -> bool:
-    """The fixed-point path, whose integer boundary test fits int32."""
+    """The fixed-point path, whose integer boundary test fits int32, with
+    the peak window alone spacing the boundaries (``min_dwell <= 1``: the
+    kernel has no sequential dwell scan)."""
     return (cfg.fixed_point and cfg.early_quantization
-            and ev.fixed_tstat_in_range(cfg))
+            and ev.fixed_tstat_in_range(cfg) and cfg.min_dwell <= 1)
 
 
 stages.register_backend("detect", stages.KERNELS, primitive=event_detect,

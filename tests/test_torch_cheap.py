@@ -248,6 +248,53 @@ def test_supports_gate_and_unported_modes(s):
                                    cfg, plan)
         assert out[1].shape == (len(s["sig"]), cfg.max_events,
                                 cfg.max_hits_per_seed)
-    with pytest.raises(NotImplementedError):
-        events._peak_pick(torch.zeros(1, 8), torch.zeros(1, 8, dtype=bool),
-                          s["cfg_t"].replace(min_dwell=2))
+    # the kernels have no dwell scan: min_dwell > 1 resolves detect and the
+    # fused kernel to the reference, which runs the reference's dwell scan
+    dwell = s["cfg_t"].replace(min_dwell=2)
+    plan = stages.resolve_plan(dwell, stages.KERNELS)
+    assert dict(plan)["detect"] == stages.REFERENCE
+    assert stages.fused_cheap_backend(plan, dwell) is None
+    with pytest.raises(ValueError, match="min_dwell"):
+        cf_ops.cheap_fused_rows(xq, s["tarr"]["bucket_start"],
+                                s["tarr"]["entries_packed"], dwell)
+    kept = events._peak_pick(torch.ones(1, 8), torch.ones(1, 8, dtype=bool),
+                             dwell.replace(peak_window=0))
+    assert kept.tolist() == [[True, False] * 4]
+
+
+# --------------------------------------------------------------------------- #
+# min_dwell > 1: the reference's sequential dwell scan
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("min_dwell,peak_window", [(2, 0), (3, 0), (3, 1),
+                                                   (5, 3)])
+def test_boundary_mask_min_dwell(s, min_dwell, peak_window):
+    """The greedy left-to-right dwell scan equals the reference's
+    ``lax.scan`` on every read, and does drop boundaries here."""
+    cfg_j = s["cfg_j"].replace(min_dwell=min_dwell, peak_window=peak_window)
+    cfg_t = s["cfg_t"].replace(min_dwell=min_dwell, peak_window=peak_window)
+    xq = events.early_quantize(torch.from_numpy(s["sig"]), cfg_t)
+    want = jax.jit(jax.vmap(lambda r: jev.boundary_mask_fixed(r, cfg_j)))(
+        jnp.asarray(xq.numpy().astype(np.int16)))
+    got = events.boundary_mask_fixed(xq, cfg_t)
+    _eq(got, want, "boundary mask")
+    loose = events.boundary_mask_fixed(xq, cfg_t.replace(min_dwell=1))
+    assert int(loose.sum()) > int(got.sum())
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("min_dwell", [2, 3])
+def test_map_chunk_min_dwell_equals_jax_reference(s, min_dwell, use_kernels):
+    """Both port plans at min_dwell > 1 equal the JAX reference plan: every
+    MapOutput field and counter (peak window 0, so the scan decides every
+    boundary's spacing)."""
+    cfg_j = s["cfg_j"].replace(min_dwell=min_dwell, peak_window=0)
+    cfg_t = s["cfg_t"].replace(min_dwell=min_dwell, peak_window=0)
+    want = jpipe.map_chunk(jnp.asarray(s["sig"]), s["jarr"], cfg_j,
+                           use_kernels=False, n_valid=5)
+    got = pipeline.map_chunk(torch.from_numpy(s["sig"]), s["tarr"], cfg_t,
+                             use_kernels=use_kernels, n_valid=5)
+    for f in ("t_start", "score", "mapped", "n_events"):
+        _eq(getattr(got, f), getattr(want, f), f)
+    assert set(got.counters) == set(want.counters)
+    for k in want.counters:
+        assert int(got.counters[k]) == int(want.counters[k]), k

@@ -94,7 +94,8 @@ def s(small_ref, small_reads, rsqrtps_host):
 # --------------------------------------------------------------------------- #
 # f32 evaluation orders
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("n", [1024, 1000, 300, 257, 16, 5])
+@pytest.mark.parametrize("n", [8192, 5000, 4097, 2049, 1024, 1000, 300,
+                               257, 65, 16, 5])
 def test_prefix_sum_is_xlas_blocked_scan(n):
     rng = np.random.default_rng(n)
     x = (rng.standard_normal((32, n)) * 3).astype(np.float32)
@@ -106,7 +107,8 @@ def test_prefix_sum_is_xlas_blocked_scan(n):
         assert (seq != np.asarray(want)).any()
 
 
-@pytest.mark.parametrize("n", [192, 100, 96, 33, 32, 7])
+@pytest.mark.parametrize("n", [40_000, 12_345, 4096, 1025, 193, 192, 100,
+                               96, 33, 32, 7])
 def test_tree_sum_is_xlas_windowed_reduction(n):
     rng = np.random.default_rng(100 + n)
     x = (rng.standard_normal((64, n)) * 3).astype(np.float32)

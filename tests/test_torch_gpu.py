@@ -558,3 +558,118 @@ def test_kernels_plan_never_runs_the_plain_cheap_phase_on_the_card(
             for g, w in zip(got[:3], want[:3]):
                 assert torch.equal(g, w)
             assert all(torch.equal(got[3][k], want[3][k]) for k in want[3])
+
+
+# --------------------------------------------------------------------------- #
+# The serving path: the prefix ladder's shapes and the driver on the card
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def d1_serving():
+    """D1's index in both fixed and float modes and 96 of its reads."""
+    dev = _card()
+    from repro_torch.core import build_index
+    from repro_torch.signal import datasets, simulate
+    spec = datasets.DATASETS["D1"]
+    cfg = datasets.config_for(spec)
+    ref = simulate.make_reference(spec.genome_len, seed=spec.seed)
+    reads = simulate.sample_reads(ref, 96, signal_len=cfg.signal_len,
+                                  seed=spec.seed + 1, junk_frac=0.08)
+    index = {m: build_index(ref.events_concat, ref.n_events,
+                            cfg.with_mode(m)) for m in ("ms_fixed",
+                                                        "ms_float")}
+    return dev, cfg, reads, index
+
+
+@pytest.mark.parametrize("mode", ["ms_fixed", "ms_float"])
+@pytest.mark.parametrize("L", [256, 512, 768, 1024])
+def test_map_chunk_kernels_equal_plain_at_serving_shapes(d1_serving, L,
+                                                         mode):
+    """One chunk of 32 reads cut to each ladder prefix (``stage_cfg``):
+    the kernels plan equals the reference plan, field by field and counter
+    by counter, and the fused cheap kernel and event_detect equal their
+    plain versions at those shapes."""
+    from repro_torch.core import events, map_chunk
+    from repro_torch.core.index import index_arrays
+    from repro_torch.core.realtime import stage_cfg
+    from repro_torch.kernels.cheap_fused import ops as cf_ops
+    from repro_torch.kernels.cheap_fused.ref import cheap_fused_rows_ref
+    from repro_torch.kernels.event_detect import ops as ed_ops
+    from repro_torch.kernels.event_detect.ref import event_detect_rows_ref
+    dev, cfg, reads, index = d1_serving
+    c = stage_cfg(cfg.with_mode(mode), L)
+    arrays = index_arrays(index[mode], dev)
+    sig = torch.from_numpy(reads.signals[:32, :L].copy()).to(dev)
+    got = map_chunk(sig, arrays, c, use_kernels=True, n_valid=30)
+    want = map_chunk(sig, arrays, c, use_kernels=False, n_valid=30)
+    for f in ("t_start", "score", "mapped", "n_events"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert all(torch.equal(got.counters[k], want.counters[k])
+               for k in want.counters)
+    if mode == "ms_fixed":
+        xq = events.early_quantize(sig, c)
+        args = (xq, arrays["bucket_start"], arrays["entries_packed"], c)
+        for g, w in zip(cf_ops.cheap_fused_rows(*args),
+                        cheap_fused_rows_ref(*args)):
+            assert torch.equal(g, w)
+        for g, w in zip(ed_ops.event_detect_rows(xq, c),
+                        event_detect_rows_ref(xq, c)):
+            assert torch.equal(g, w)
+
+
+def _serve_state(sd) -> str:
+    import dataclasses
+    import json
+    return json.dumps(dict(
+        streams={k: dataclasses.asdict(v) for k, v in sd._streams.items()},
+        classes={str(k): dataclasses.asdict(v)
+                 for k, v in sd.class_report().items()},
+        tenants={str(k): dataclasses.asdict(v)
+                 for k, v in sd.tenant_report().items()},
+        report={k: dataclasses.asdict(v) for k, v in sd.report().items()},
+        events=sd.events, clock=sd.clock, counters=sd.counters,
+        n_chunks=sd.n_chunks, n_pad_rows=sd.n_pad_rows), sort_keys=True)
+
+
+@pytest.mark.parametrize("mode,shed", [("ms_fixed", False),
+                                       ("ms_fixed", True),
+                                       ("ms_float", False)])
+def test_serving_kernels_plan_equals_reference_plan(d1_serving, mode, shed):
+    """``ServeDriver`` with the early-termination ladder (and with shedding
+    under SLO classes and tenant budgets) over the kernels plan gives the
+    reference plan's run on the card: every stream state and report, the
+    class and tenant reports, the event trace, the virtual clock and the
+    counters.  The kernels plan launches its path's kernels and no
+    other."""
+    from repro_torch import kernels as K
+    from repro_torch.core import Mapper, ServeDriver, TenantBudget
+    from repro_torch.launch import serve_rsga
+    dev, cfg, reads, index = d1_serving
+    c = cfg.with_mode(mode)
+    kw = dict(chunk=32, early_term=True)
+    slos, tenants = None, 0
+    if shed:
+        tenants = 4
+        slos = [k.name for k in serve_rsga.SHED_CLASSES]
+        kw.update(shed=True, shed_window=2.0,
+                  slo_classes=serve_rsga.SHED_CLASSES,
+                  tenant_budgets=tuple(TenantBudget(f"t{i}", rate=8.0)
+                                       for i in range(tenants)))
+    trace = serve_rsga.build_trace(reads.signals, 4, 24,
+                                   arrival_rate=(1.3 if shed else 0.7) * 32,
+                                   slos=slos, tenants=tenants,
+                                   skew=1.0 if shed else 0.0)
+    K.reset_launches()
+    got = ServeDriver(Mapper(index[mode], c, use_kernels=True, device=dev),
+                      **kw)
+    got.serve_trace(trace)
+    launched = {k for k, v in K.LAUNCHES.items() if v}
+    want = ServeDriver(Mapper(index[mode], c, device=dev), **kw)
+    want.serve_trace(trace)
+    assert _serve_state(got) == _serve_state(want)
+    path = ({"cheap_fused", "bitonic_sort", "chain_dp"} if mode == "ms_fixed"
+            else {"pluto_lookup", "pluto_lookup_rows", "segment_sum",
+                  "bitonic_sort", "chain_dp"})
+    assert launched == path
+    assert got.n_chunks > len(trace) // 32
+    if shed:
+        assert got.n_shed > 0

@@ -94,6 +94,24 @@ def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
                         "--workdir", str(tmp_path)])
 
 
+def test_serving_path_defaults_to_cuda_and_raises_without_it(no_cuda,
+                                                            small_index):
+    from repro_torch.core.realtime import map_realtime
+    from repro_torch.launch import serve_rsga
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_rsga.main(["--dataset", "D1", "--streams", "1",
+                         "--reads-per-stream", "2"])
+    sig = np.zeros((2, 1024), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        map_realtime(sig, small_index, small_index.cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Mapper(small_index, use_kernels=True).serve(chunk=4)
+    sd = Mapper(small_index, device="cpu").serve(chunk=4, early_term=True)
+    sd.submit("s", sig)
+    sd.drain()
+    assert sd.stream("s").n_done == 2
+
+
 def test_kernels_plan_never_runs_the_plain_cheap_phase_on_cuda(small_index):
     """The kernels plan's per-stage cheap level binds the ``event_detect``
     and ``lookup`` kernel primitives; a config outside the detect gate
