@@ -37,6 +37,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    perstage  — ``cheap_phase(..., use_fused=False)`` under the kernels plan
                (event_detect and both lookups) on D1's and D5's first chunk
                must equal the fused kernel and the reference plan;
+   tiered    — the out-of-core index at D5 (16 tiles): the streaming
+               build must equal ``tier_index(build_index(...))`` byte for
+               byte; ``Mapper(backend="tiered")`` over 4096 reads (16
+               slots, 4 slots, 4 random slots + 4 replicas, no pre-pass
+               reuse) and 1024 ``ms_float`` reads must equal the resident
+               kernels plan chunk by chunk and launch no hand-written
+               kernel; healed faults must equal it too, a sticky
+               corruption must raise ``TileReadError``; the page-in from
+               pinned and pageable memory, the pre-pass, paged bytes, hit
+               rates, reads/s against the resident reference plan and peak
+               memory are reported; ``serve_rsga --fault-plan 0
+               --early-term`` at D1 must give the driver state of the same
+               run on the CPU;
 4. routes    — one chunk per route through the chaining gate (full or
                compacted chunk, at the 64 and 128 ladder widths and at the
                full E*H = 3072; a chunk with no anchors), picked by anchor
@@ -823,6 +836,312 @@ def phase_perstage(data, dev):
     return out
 
 
+# ---- the out-of-core tiered index -----------------------------------------
+TIERS = 16
+# (label, Mapper arguments beyond backend="tiered", tiles=TIERS)
+TIERED_RUNS = (("16 slots", dict(cache_slots=16)),
+               ("4 slots", dict(cache_slots=4)),
+               ("4 slots random +4 replicas",
+                dict(cache_slots=4, cache_policy="random", cache_seed=1,
+                     cache_replicas=4)),
+               ("16 slots no pre-pass reuse",
+                dict(cache_slots=16, reuse_prepass=False)))
+TIERED_FLOAT_READS = 1024
+# read errors and bit flips that the retries heal, then a tile that
+# corrupts on every attempt
+HEALED_FAULTS = dict(seed=7, p_read_error=0.3, p_corrupt=0.3)
+TIERED_SERVE_ARGS = ("--dataset", "D1", "--streams", "16",
+                     "--reads-per-stream", "16", "--chunk", "32",
+                     "--early-term", "--fault-plan", "0", "--tiles",
+                     str(TIERS), "--cache-slots", "4")
+
+
+def chunked(mapper, sig, prefetch=False):
+    """``Mapper.map_signals``'s stream kept chunk by chunk (with the tiered
+    index's prefetch of the next chunk's tiles when asked)."""
+    import torch
+    from repro_torch.core import driver
+    pre = None
+    if prefetch:
+        cache, cfg, plan = mapper.cache, mapper.cfg, mapper.plan
+        pre = lambda s, nv: cache.prefetch(s, cfg, plan)  # noqa: E731
+    out = list(driver.stream_map(mapper.chunk_fn(),
+                                 driver.array_chunks(sig, CHUNK),
+                                 prefetch=pre))
+    torch.cuda.synchronize()
+    return out
+
+
+def equal_chunks(label, got, want) -> None:
+    """Every chunk's MapOutput fields and counters equal."""
+    import numpy as np
+    if [c[:2] for c in got] != [c[:2] for c in want]:
+        raise AssertionError(f"{label}: chunk lists differ")
+    for (ci, _, g), (_, _, w) in zip(got, want):
+        for f in ("t_start", "score", "mapped", "n_events"):
+            gf, wf = getattr(g, f), getattr(w, f)
+            if gf.dtype != wf.dtype or not np.array_equal(gf, wf):
+                raise AssertionError(f"{label}: chunk {ci} {f} differs")
+        if g.counters != w.counters:
+            raise AssertionError(f"{label}: chunk {ci} counters differ: "
+                                 f"{g.counters} vs {w.counters}")
+
+
+def page_in_times(cache, dev):
+    """One tile's page-in (both planes) into a device slot, from the
+    cache's pinned host tiles and from pageable copies of them, by CUDA
+    events over 20 back-to-back copies."""
+    import numpy as np
+    import torch
+    reps = 20
+    t = 0
+    dst_b, dst_e = cache._dev_bstart[0], cache._dev_ent[:, 0]
+    out = {}
+    for kind in ("pinned", "pageable"):
+        src_b, src_e = cache._host_bstart[t], cache._host_ent[t]
+        if kind == "pageable":
+            src_b = torch.from_numpy(np.array(src_b.numpy()))
+            src_e = torch.from_numpy(np.array(src_e.numpy()))
+        pinned = src_b.is_pinned() and src_e.is_pinned()
+        if pinned != (kind == "pinned"):
+            raise AssertionError(f"page-in source {kind}: is_pinned "
+                                 f"{pinned}")
+
+        def copy():
+            dst_b.copy_(src_b, non_blocking=pinned)
+            dst_e[0].copy_(src_e[0], non_blocking=pinned)
+            dst_e[1].copy_(src_e[1], non_blocking=pinned)
+        copy()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            copy()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        out[kind] = dict(ms=ms, gb_per_s=cache.tiered.tile_nbytes / ms / 1e6)
+    torch.cuda.synchronize()
+    if not (torch.equal(dst_b.cpu(), cache._host_bstart[t])
+            and torch.equal(dst_e.cpu(), cache._host_ent[t])):
+        raise AssertionError("page-in: the slot does not hold the tile")
+    return out
+
+
+def timed_chain(fn):
+    """Run ``fn`` with the chain phase (``pipeline._chain_outputs``) timed
+    between synchronisations; returns (fn's result, chain seconds)."""
+    import torch
+    from repro_torch.core import pipeline
+    inner, spent = pipeline._chain_outputs, [0.0]
+
+    def chain(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+    pipeline._chain_outputs = chain
+    try:
+        return fn(), spent[0]
+    finally:
+        pipeline._chain_outputs = inner
+
+
+def phase_tiered(data, dev):
+    """The tiered index on the card: the streaming build at D5, the tiered
+    Mapper in four cache setups and in ms_float against the resident
+    kernels plan chunk by chunk, healed and sticky faults, and the
+    launcher's --fault-plan path against the same run on the CPU.  No
+    hand-written kernel may launch in a tiered run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import FaultPlan, Mapper, TileReadError, stages
+    from repro_torch.core import tiered
+    from repro_torch.core.index import build_index_streaming, tier_index
+    from repro_torch.launch import serve_rsga
+    cfg, ref, reads, index = data["D5"]
+    res = {}
+
+    # the streaming build against tier_index(build_index(...))
+    t0 = time.time()
+    want = tier_index(index, TIERS)
+    t_tier = time.time() - t0
+    t0 = time.time()
+    got = build_index_streaming(ref.events_concat, ref.n_events, cfg, TIERS)
+    t_stream = time.time() - t0
+    for name in ("tile_bucket_start", "tile_entries_packed",
+                 "tile_n_entries", "tile_checksums"):
+        g, w = getattr(got, name), getattr(want, name)
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"tiered build: {name} differs")
+    res["build"] = dict(tiles=TIERS, entries=got.n_entries,
+                        buckets_per_tile=got.buckets_per_tile,
+                        emax=got.emax, tile_nbytes=got.tile_nbytes,
+                        host_nbytes=got.nbytes, streaming_s=t_stream,
+                        tier_index_s=t_tier)
+    log(f"[tiered] D5 build: {TIERS} tiles of {got.buckets_per_tile} "
+        f"buckets, {got.n_entries} entries, emax {got.emax} "
+        f"({got.tile_nbytes / 1e6:.2f} MB a tile); build_index_streaming "
+        f"{t_stream:.1f} s equals tier_index(build_index) ({t_tier:.1f} s) "
+        f"byte for byte, CRCs included")
+
+    # the resident index: the kernels plan (what every tiered run must
+    # equal) and the reference plan (the tiered plan's own stages)
+    sig = reads.signals
+    resident_k = Mapper(index, cfg, use_kernels=True, device=dev)
+    chunked(resident_k, sig[:CHUNK])                 # warm
+    want = chunked(resident_k, sig)
+    resident_r = Mapper(index, cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    (plain, chain_s) = timed_chain(lambda: chunked(resident_r, sig))
+    wall_r = time.time() - t0
+    peak_r = torch.cuda.max_memory_allocated()
+    equal_chunks("D5 resident reference plan vs kernels plan", plain, want)
+    res["resident_reference"] = dict(
+        seconds=wall_r, reads_per_s=READS / wall_r, chain_s=chain_s,
+        chain_share=chain_s / wall_r, max_memory_allocated=peak_r)
+    log(f"[tiered] D5 resident index, reference plan: {READS} reads in "
+        f"{wall_r:.2f} s ({READS / wall_r:.1f} reads/s; chain phase "
+        f"{chain_s:.2f} s, {100 * chain_s / wall_r:.1f}% of the wall), "
+        f"peak {peak_r / 1e6:.1f} MB; equals the kernels plan")
+
+    runs = {}
+    for label, kw in TIERED_RUNS:
+        m = Mapper(index, cfg, backend="tiered", tiles=TIERS, device=dev,
+                   **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.time()
+        (out, chain_s) = timed_chain(lambda: chunked(m, sig, prefetch=True))
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"tiered {label}", launches, ())
+        equal_chunks(f"D5 tiered {label}", out, want)
+        c = m.cache
+        n = c.n_chunks
+        runs[label] = r = dict(
+            seconds=wall, reads_per_s=READS / wall, chain_s=chain_s,
+            chain_share=chain_s / wall, max_memory_allocated=peak,
+            n_chunks=n, hits=c.hits, misses=c.misses,
+            hit_rate=c.hit_rate, paged_bytes=c.paged_bytes,
+            paged_bytes_per_chunk=c.paged_bytes / n,
+            replica_loads=c.replica_loads, replica_bytes=c.replica_bytes,
+            tiles_per_chunk=(c.hits + c.misses) / n,
+            cache_nbytes=c.cache_nbytes, launches=launches)
+        log(f"[tiered] D5 {label}: {READS} reads in {wall:.2f} s "
+            f"({READS / wall:.1f} reads/s; chain phase {chain_s:.2f} s, "
+            f"{100 * chain_s / wall:.1f}%), {n} chunks touching "
+            f"{r['tiles_per_chunk']:.2f} tiles each, hit rate "
+            f"{c.hit_rate:.3f}, paged {c.paged_bytes / n / 1e6:.2f} MB a "
+            f"chunk (+{c.replica_bytes / 1e6:.2f} MB replicas), peak "
+            f"{peak / 1e6:.1f} MB; no kernel launched; every chunk equals "
+            f"the resident kernels plan")
+    res["runs"] = runs
+
+    # the pre-pass and the page-ins, timed
+    m = Mapper(index, cfg, backend="tiered", tiles=TIERS, cache_slots=4,
+               device=dev)
+    x = torch.from_numpy(sig[:CHUNK]).to(dev)
+    res["prepass_ms"] = wall_ms(
+        lambda: tiered.prepass(x, cfg, m.plan, TIERS), 10)
+    res["page_in"] = page_in_times(m.cache, dev)
+    pin, pag = res["page_in"]["pinned"], res["page_in"]["pageable"]
+    log(f"[tiered] pre-pass {res['prepass_ms']:.3f} ms a chunk of {CHUNK} "
+        f"(host clock, its histogram's sync included); one tile's page-in "
+        f"({m.cache.tiered.tile_nbytes / 1e6:.2f} MB): pinned "
+        f"{pin['ms']:.4f} ms ({pin['gb_per_s']:.1f} GB/s), pageable "
+        f"{pag['ms']:.4f} ms ({pag['gb_per_s']:.1f} GB/s)")
+
+    # ms_float: the tiered plan's reference detection with the reference
+    # segment sum, against the resident kernels plan
+    cfg_f = cfg.with_mode("ms_float")
+    sig_f = sig[:TIERED_FLOAT_READS]
+    want_f = chunked(Mapper(index, cfg_f, use_kernels=True, device=dev),
+                     sig_f)
+    m = Mapper(index, cfg_f, backend="tiered", tiles=TIERS, cache_slots=4,
+               device=dev)
+    K.reset_launches()
+    t0 = time.time()
+    out = chunked(m, sig_f, prefetch=True)
+    wall = time.time() - t0
+    check_launches("tiered ms_float", dict(K.LAUNCHES), ())
+    equal_chunks("D5 tiered ms_float", out, want_f)
+    res["float"] = dict(reads=TIERED_FLOAT_READS, seconds=wall,
+                        hit_rate=m.cache.hit_rate)
+    log(f"[tiered] D5 ms_float: {TIERED_FLOAT_READS} reads in {wall:.2f} s,"
+        f" no kernel launched; every chunk equals the resident kernels "
+        f"plan")
+
+    # faults: healed by the retries, then sticky
+    sig_h = sig[:TIERED_FLOAT_READS]
+    m = Mapper(index, cfg, backend="tiered", tiles=TIERS, cache_slots=4,
+               fault_plan=FaultPlan(**HEALED_FAULTS), cache_retries=32,
+               device=dev)
+    K.reset_launches()
+    out = chunked(m, sig_h, prefetch=True)
+    check_launches("tiered faults", dict(K.LAUNCHES), ())
+    equal_chunks("D5 tiered healed faults", out,
+                 want[:TIERED_FLOAT_READS // CHUNK])
+    c = m.cache
+    if not (c.retries > 0 and c.corruptions > 0):
+        raise AssertionError(f"tiered faults: retries {c.retries}, "
+                             f"corruptions {c.corruptions}")
+    res["faults"] = dict(plan=HEALED_FAULTS, retries=c.retries,
+                         corruptions=c.corruptions,
+                         vtime_penalty=c.vtime_penalty)
+    m = Mapper(index, cfg, backend="tiered", tiles=TIERS, cache_slots=4,
+               fault_plan=FaultPlan(seed=1, sticky_corrupt_tiles=range(
+                   TIERS)), device=dev)
+    try:
+        chunked(m, sig_h, prefetch=True)
+    except TileReadError as e:
+        sticky = str(e)
+    else:
+        raise AssertionError("tiered sticky corruption: no TileReadError")
+    res["faults"]["sticky"] = dict(error=sticky,
+                                   corruptions=m.cache.corruptions)
+    log(f"[tiered] faults {HEALED_FAULTS}: healed ({c.retries} retries, "
+        f"{c.corruptions} corruptions caught, {c.vtime_penalty:.2f} virtual "
+        f"units lost), outputs equal; sticky corruption raised "
+        f"TileReadError ({sticky})")
+
+    # the launcher's --fault-plan path, on the card and on the CPU
+    K.reset_launches()
+    served = serve_rsga.run(list(TIERED_SERVE_ARGS))
+    torch.cuda.synchronize()
+    check_launches("tiered serve", dict(K.LAUNCHES), ())
+    host = serve_rsga.run(list(TIERED_SERVE_ARGS) + ["--device", "cpu"])
+    sd, sd_cpu = served.driver, host.driver
+    if driver_state(sd) != driver_state(sd_cpu):
+        raise AssertionError("tiered serve: the card's driver state differs "
+                             "from the CPU's")
+    storage = [(d.mapper.cache.misses, d.mapper.cache.retries,
+                d.mapper.cache.corruptions, d.mapper.cache.vtime_penalty,
+                d.mapper.cache.hits) for d in (sd, sd_cpu)]
+    if storage[0] != storage[1] or sd.counters.get("n_reads", 0) <= 0:
+        raise AssertionError(f"tiered serve: [storage] {storage}")
+    res["serve"] = dict(args=list(TIERED_SERVE_ARGS), wall_s=served.wall_s,
+                        cpu_wall_s=host.wall_s, n_chunks=sd.n_chunks,
+                        virtual_makespan=sd.clock,
+                        storage=dict(zip(("misses", "retries",
+                                          "corruptions", "vtime_penalty",
+                                          "hits"), storage[0])))
+    log(f"[tiered] serve_rsga {' '.join(TIERED_SERVE_ARGS)}: card "
+        f"{served.wall_s:.2f} s, CPU {host.wall_s:.2f} s, {sd.n_chunks} "
+        f"chunks, virtual makespan {sd.clock:.2f}; driver state and "
+        f"[storage] counts equal the CPU run's {res['serve']['storage']}")
+    K.reset_launches()
+    return res
+
+
 def event_detect_edges(label, xq, cfg, dev):
     """event_detect against its plain version on reads built to break it:
     all-zero reads (one event), levels of alternating sign (more
@@ -1504,6 +1823,7 @@ def run() -> int:
                                  for k in ("D1", "D5")})
     floats = timed("float", phase_float, data, dev)
     perstage = timed("perstage", phase_perstage, data, dev)
+    tiered_ = timed("tiered", phase_tiered, data, dev)
     main_routes = {(k, b, w) for k in maps
                    for (b, _, w) in maps[k]["route_keys"]}
     inputs, routes = timed("routes", phase_routes, data, dev)
@@ -1530,6 +1850,8 @@ def run() -> int:
     runs = {**{f"{d} ms_fixed": maps[d]["launches"] for d in maps},
             **{k: v["launches"] for k, v in floats.items()},
             **{f"{d} per-stage": v["launches"] for d, v in perstage.items()},
+            **{f"D5 tiered {k}": v["launches"]
+               for k, v in tiered_["runs"].items()},
             **{f"serve {k}": v["launches"]
                for k, v in serve["runs"].items()}}
     sources = {
@@ -1577,7 +1899,8 @@ def run() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(device=name, nvidia_smi=smi, build=build_record, kernels=summary,
              launch_floor_ms=floor, map=maps,
-             float=floats, perstage=perstage, launcher=launcher,
+             float=floats, perstage=perstage, tiered=tiered_,
+             launcher=launcher,
              routes=routes, serve=serve, phase_seconds=seconds,
              seconds=time.time() - t_all),
         indent=1,
@@ -1587,6 +1910,13 @@ def run() -> int:
                                      "max_memory_allocated")}
          for name_, res in [*((f"{d} ms_fixed", maps[d]) for d in maps),
                             *floats.items()]}))
+    log("[tiered-summary] " + json.dumps(dict(
+        card=smi, resident_reference=tiered_["resident_reference"],
+        runs={k: {f: v[f] for f in ("reads_per_s", "chain_share",
+                                    "hit_rate", "paged_bytes_per_chunk",
+                                    "max_memory_allocated")}
+              for k, v in tiered_["runs"].items()},
+        prepass_ms=tiered_["prepass_ms"], page_in=tiered_["page_in"])))
     log(f"[serve-summary] " + json.dumps(
         {k: {f: v[f] for f in ("reads_per_s", "streams_per_s",
                                "virtual_makespan", "p50", "p99",

@@ -4,6 +4,8 @@ Public API:
     MarsConfig            static pipeline configuration
     build_index           offline reference indexing (numpy)
     index_from_numpy      an Index over existing planes
+    TieredIndex           host-resident bucket-range tiles (tier_index,
+                          build_index_streaming), paged by core/tiered.py
     stages                backend registry + plan resolution
     Mapper / map_chunk    online read mapping (CUDA by default)
     driver                streaming host driver + ProgressLog
@@ -19,8 +21,10 @@ from repro_torch.core.config import (DEFAULT, MODE_MS_FIXED, MODE_MS_FLOAT,
                                      MODE_RH2, MODES, MarsConfig)
 from repro_torch.core.faults import (FaultPlan, InjectedPrefetchError,
                                      TileReadError, sample_fault_plans)
-from repro_torch.core.index import (Index, build_index, index_arrays,
-                                    index_from_numpy)
+from repro_torch.core.index import (Index, TieredIndex, build_index,
+                                    build_index_streaming, index_arrays,
+                                    index_from_numpy, partition_index,
+                                    tier_index)
 from repro_torch.core.pipeline import (MapOutput, Mapper, map_chunk,
                                        score_accuracy)
 from repro_torch.core.server import (ClassReport, ServeDriver, SLOClass,
@@ -29,6 +33,7 @@ from repro_torch.core.server import (ClassReport, ServeDriver, SLOClass,
 __all__ = [
     "DEFAULT", "MODES", "MODE_RH2", "MODE_MS_FLOAT", "MODE_MS_FIXED",
     "MarsConfig", "Index", "build_index", "index_arrays", "index_from_numpy",
+    "TieredIndex", "tier_index", "build_index_streaming", "partition_index",
     "MapOutput", "Mapper", "map_chunk", "driver", "stages", "score_accuracy",
     "costmodel", "ServeDriver", "StreamReport", "SLOClass", "ClassReport",
     "TenantBudget", "TenantReport", "FaultPlan", "TileReadError",

@@ -48,6 +48,7 @@ def array_chunks(signals: np.ndarray, chunk: int,
 
 def stream_map(map_fn: Callable[[np.ndarray, int], "MapOutput"],
                chunks: Iterable[Chunk],
+               prefetch: Optional[Callable[[np.ndarray, int], None]] = None,
                trace: Optional[list] = None,
                clock: Optional[Callable[[], float]] = None,
                ) -> Iterator[Tuple[int, int, "MapOutput"]]:
@@ -57,9 +58,18 @@ def stream_map(map_fn: Callable[[np.ndarray, int], "MapOutput"],
     (``Mapper.chunk_fn``).  The next chunk is dispatched before the previous
     chunk's results are copied to the host.  Yields (chunk_idx, n_valid,
     MapOutput) with per-read numpy fields trimmed to ``n_valid`` rows and
-    int counters.  A chunk source is pulled only after the previous chunk
-    was dispatched, never ahead: live sources (the serving driver's ready
-    queue, core/server.py) depend on that pull order.
+    int counters.  Without ``prefetch`` a chunk source is pulled only after
+    the previous chunk was dispatched, never ahead: live sources (the
+    serving driver's ready queue, core/server.py) depend on that pull
+    order.
+
+    With ``prefetch`` the loop reads ONE chunk ahead: right after chunk i
+    is dispatched, ``prefetch(signals, n_valid)`` runs on chunk i+1, so its
+    host-to-device staging (the tiered index's tile cache, core/tiered.py)
+    overlaps chunk i's device work.  A ``prefetch`` exception does not
+    abandon the chunks already dispatched: the loop stops reading ahead,
+    yields every dispatched chunk, and raises the failure once at the end
+    of the stream.
 
     With ``trace`` (a list) the loop appends the replayable chunk-event
     records ``("dispatch", t, ci, n_valid)`` after each dispatch and
@@ -80,15 +90,43 @@ def stream_map(map_fn: Callable[[np.ndarray, int], "MapOutput"],
         return _to_host(*p)
 
     pending = None
-    for ci, n_valid, sig in chunks:
-        out = map_fn(sig, n_valid)
-        n_seen += 1
-        _note("dispatch", ci, n_valid)
-        if pending is not None:
-            yield _emit(pending)
-        pending = (ci, n_valid, out)
+    exc = None
+    if prefetch is None:
+        for ci, n_valid, sig in chunks:
+            out = map_fn(sig, n_valid)
+            n_seen += 1
+            _note("dispatch", ci, n_valid)
+            if pending is not None:
+                yield _emit(pending)
+            pending = (ci, n_valid, out)
+    else:
+        it = iter(chunks)
+        nxt = next(it, None)
+        if nxt is not None:
+            try:
+                prefetch(nxt[2], nxt[1])
+            except Exception as e:          # nothing in flight yet
+                exc, nxt = e, None
+        while nxt is not None:
+            ci, n_valid, sig = nxt
+            out = map_fn(sig, n_valid)
+            n_seen += 1
+            _note("dispatch", ci, n_valid)
+            nxt = next(it, None)
+            if nxt is not None:
+                try:
+                    prefetch(nxt[2], nxt[1])  # stage the next chunk
+                except Exception as e:
+                    # chunk ci is in flight: let it finish and yield, and
+                    # raise the prefetch failure at the end of the stream
+                    exc, nxt = e, None
+            if pending is not None:
+                yield _emit(pending)
+            pending = (ci, n_valid, out)
     if pending is not None:
         yield _emit(pending)
+    if exc is not None:
+        raise exc
 
 
 def _to_host(ci: int, n_valid: int, out) -> Tuple[int, int, "MapOutput"]:

@@ -29,14 +29,14 @@ import collections
 import copy
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import cheap, chaining, driver, stages
 from repro_torch.core.config import MarsConfig
-from repro_torch.core.index import Index, index_arrays
+from repro_torch.core.index import Index, TieredIndex, index_arrays, tier_index
 
 
 class MapOutput(NamedTuple):
@@ -77,13 +77,25 @@ def cheap_phase(signals: torch.Tensor, index: Dict[str, torch.Tensor],
     ``use_fused=False`` pins level (2).  Returns (q_pos, t_pos, hit_valid,
     counters); ``counters["n_anchors_postvote"]`` is the per-read
     post-filter anchor count the compaction gate keys on.
+
+    A tiered index view that carries the pre-pass's planes
+    (``tiered.PREPASS_KEYS``) skips detect, quantize and seed: the
+    pre-pass ran those stages of this plan over these very signals, so its
+    keys, validity and event counts are the ones they would give.
     """
     prims = stages.cheap_primitives(plan, cfg)
+    if "t_pre_keys" in index:
+        return cheap.cheap_from_keys(index["t_pre_keys"],
+                                     index["t_pre_valid"],
+                                     index["t_pre_nev"], index, cfg,
+                                     gather=prims.gather,
+                                     query_fn=prims.query_fn)
     if use_fused and prims.fused is not None:
         return prims.fused(signals, index)
     return cheap.cheap_phase_stages(signals, index, cfg,
                                     detector=prims.detector,
-                                    gather=prims.gather)
+                                    gather=prims.gather,
+                                    query_fn=prims.query_fn)
 
 
 # --------------------------------------------------------------------------- #
@@ -245,29 +257,67 @@ def map_chunk(signals: torch.Tensor, index: Dict[str, torch.Tensor],
 # Host-side mapper + accuracy scoring
 # --------------------------------------------------------------------------- #
 class Mapper:
-    """Host wrapper: owns the index arrays on ``device``, resolves the
-    backend plan once, and streams chunks through the driver.
+    """Host wrapper: owns the index on ``device``, resolves the backend plan
+    once, and streams chunks through the driver.
 
     ``device`` defaults to CUDA; without a card it raises unless the caller
     passes ``device="cpu"`` (the plain torch path — the kernel wrappers take
-    their plain versions for CPU tensors).  ``use_kernels=True`` resolves
-    the "kernels" backend.  Only the replicated (whole index on one device)
-    layout exists in this package so far.
+    their plain versions for CPU tensors).  ``backend`` names a registry
+    backend ("reference", "kernels" or "tiered"); ``use_kernels=True`` is
+    shorthand for "kernels".
+
+    backend="tiered" keeps the index OUT OF CORE: the packed planes are
+    split into ``tiles`` host-resident bucket-range tiles and only the
+    tiles each chunk's seeds touch are paged into a ``cache_slots``-slot
+    device cache (core/tiered.py, ``self.cache``), the next chunk's tiles
+    while the current chunk computes.  Results equal the resident index's
+    bit for bit for every cache size and eviction order.  ``index`` may be
+    a prebuilt ``TieredIndex`` (e.g. from ``build_index_streaming``);
+    ``tiles`` is then ignored.  ``reuse_prepass`` (default) hands the
+    traffic pre-pass's detect/quantize/seed outputs to the main pass, so
+    that work runs once a chunk.  ``fault_plan`` (tiered only) attaches a
+    seeded ``core/faults.FaultPlan`` to the cache's page-in path;
+    ``cache_retries`` / ``cache_backoff`` bound its checksummed retry
+    loop; ``cache_replicas=K`` pins the K hottest tiles into extra slots;
+    ``cache_policy`` / ``cache_seed`` choose the eviction order
+    (``tiered.HotTileCache``).
     """
 
-    # The tiered index's host-to-device tile cache; this package has only
-    # the resident index, so there is none (the serving driver and launcher
-    # read it).
-    cache = None
-
-    def __init__(self, index: Index, cfg: Optional[MarsConfig] = None,
-                 use_kernels: bool = False, device="cuda"):
+    def __init__(self, index: Union[Index, TieredIndex],
+                 cfg: Optional[MarsConfig] = None,
+                 use_kernels: bool = False, backend: Optional[str] = None,
+                 device="cuda", tiles: int = 8, cache_slots: int = 4,
+                 cache_policy: str = "lru", cache_seed: int = 0,
+                 fault_plan=None, cache_retries: int = 3,
+                 cache_backoff: float = 1.0, reuse_prepass: bool = True,
+                 cache_replicas: int = 0):
         self.device = check_device(device)
         self.index = index
         self.cfg = cfg or index.cfg
-        self.backend = stages.KERNELS if use_kernels else stages.REFERENCE
+        self.backend = backend or (
+            stages.KERNELS if use_kernels else stages.REFERENCE)
         self.plan = stages.resolve_plan(self.cfg, self.backend)
-        self.arrays = index_arrays(index, self.device)
+        kind = stages.plan_index_kind(self.plan)
+        if fault_plan is not None and kind != "tiered":
+            raise ValueError(
+                f"fault_plan hooks the tiered backend's tile page-in path; "
+                f"backend {self.backend!r} resolves to index kind {kind!r} "
+                "(no page-in to inject into)")
+        # the tiered index's host-to-device tile cache (the serving driver
+        # and launcher read it); None for the resident index
+        self.cache = None
+        if kind == "tiered":
+            from repro_torch.core.tiered import HotTileCache
+            ti = (index if isinstance(index, TieredIndex)
+                  else tier_index(index, tiles))
+            self.cache = HotTileCache(
+                ti, cache_slots, device=self.device, policy=cache_policy,
+                seed=cache_seed, faults=fault_plan,
+                max_retries=cache_retries, backoff_base=cache_backoff,
+                reuse_prepass=reuse_prepass, replicas=cache_replicas)
+            self.arrays = None
+        else:
+            self.arrays = index_arrays(index, self.device)
 
     # cfg fields known NOT to shape the index arrays — the only ones
     # with_cfg may change (an allowlist, so a new index-shaping field fails
@@ -284,9 +334,9 @@ class Mapper:
     ))
 
     def with_cfg(self, cfg: MarsConfig) -> "Mapper":
-        """A Mapper over the SAME device-resident index arrays with a
-        different config; only fields that do not shape the index may
-        change."""
+        """A Mapper over the SAME device-resident index arrays (or the same
+        tile cache) with a different config; only fields that do not shape
+        the index may change."""
         changed = [f.name for f in dataclasses.fields(MarsConfig)
                    if (getattr(cfg, f.name) != getattr(self.cfg, f.name)
                        and f.name not in self._NON_INDEX_CFG_FIELDS)]
@@ -304,21 +354,31 @@ class Mapper:
         """The (signals, n_valid) -> MapOutput program for driver.stream_map
         consumers that bring their own chunk source (e.g. the launcher's
         SignalReader)."""
-        arrays, cfg, plan, device = (self.arrays, self.cfg, self.plan,
-                                     self.device)
+        arrays, cache, cfg, plan, device = (self.arrays, self.cache,
+                                            self.cfg, self.plan, self.device)
 
         def fn(sig, nv):
+            # the tiered index: page in this chunk's tiles first (or take
+            # the view a prefetch prepared)
+            index = arrays if cache is None else cache.prepare(sig, cfg,
+                                                               plan)
             x = torch.from_numpy(np.ascontiguousarray(sig, np.float32))
             if device.type == "cuda":
                 # pinned + non_blocking: the upload does not wait for the
                 # previous chunk's device work
                 x = x.pin_memory().to(device, non_blocking=True)
-            return map_chunk(x, arrays, cfg, n_valid=nv, plan=plan)
+            return map_chunk(x, index, cfg, n_valid=nv, plan=plan)
         return fn
 
     def map_signals(self, signals: np.ndarray, chunk: int = 64) -> MapOutput:
+        prefetch = None
+        if self.cache is not None:
+            cache, cfg, plan = self.cache, self.cfg, self.plan
+            # page the NEXT chunk's tiles while this chunk computes
+            prefetch = lambda sig, nv: cache.prefetch(sig, cfg, plan)
         stream = driver.stream_map(self.chunk_fn(),
-                                   driver.array_chunks(signals, chunk))
+                                   driver.array_chunks(signals, chunk),
+                                   prefetch=prefetch)
         return driver.collect(stream)
 
     def serve(self, **kw):

@@ -11,6 +11,10 @@ kernel registers itself from its ``ops.py`` at import:
   clipping gather of ``seeding.query_index``), ``sort`` (a row sort) and
   ``dp`` (``chaining.chain_dp``); quantize, seed, vote and finalize have no
   kernel and always run the reference math;
+* a ``query`` backend may instead be a whole query function over another
+  index layout (``register_backend(..., query_fn=..., index_kind=...)``):
+  the tiered index's ``query:tiered`` (core/tiered.py) routes each bucket
+  through its tile's device cache slot;
 * the cheap stages also have ONE whole-phase kernel
   (``register_fused_cheap``, kernels/cheap_fused), which engages when the
   plan's detect and query resolved to its backend and its own ``supports``
@@ -57,8 +61,16 @@ _BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
         "repro_torch.kernels.cheap_fused.ops",
         "repro_torch.kernels.segment_sum.ops",
     ),
+    # out-of-core query over host-resident bucket-range tiles paged into a
+    # device tile cache (core/tiered.py)
+    "tiered": ("repro_torch.core.tiered",),
 }
 _loaded_backend_modules = set()
+
+# The index layouts a query backend consumes: the whole packed table on the
+# device (``index.index_arrays``), or a ``tiered.HotTileCache`` view of the
+# host-resident tiles.
+INDEX_KINDS: Tuple[str, ...] = ("replicated", "tiered")
 
 # Uniform per-chunk counter schema (docs/COUNTERS.md of the reference
 # package): every map_chunk output carries exactly these counters.
@@ -71,38 +83,58 @@ CHUNK_COUNTER_SCHEMA: Tuple[str, ...] = COUNTER_SCHEMA + (
     "n_reads", "n_samples")
 
 # Per-stage DEBUG counters a stage may emit beside the schema; the chunk
-# program drops them so CHUNK_COUNTER_SCHEMA stays exact.  (The reference
-# package's tiered-index counters join when that slice is ported.)
-DEBUG_COUNTER_SCHEMA: Tuple[str, ...] = ("n_votes_clipped",)
+# program drops them so CHUNK_COUNTER_SCHEMA stays exact.
+DEBUG_COUNTER_SCHEMA: Tuple[str, ...] = (
+    "n_votes_clipped",
+    # the tiered index's tile cache (core/tiered.py), per chunk: tile hits,
+    # misses, host->device paged bytes (int32, clamped), page-in re-reads
+    # and checksum mismatches caught (exact totals live on HotTileCache)
+    "n_tile_hits", "n_tile_misses", "n_tile_paged_bytes",
+    "n_tile_retries", "n_tile_corruptions",
+)
 
 
 class Backend(NamedTuple):
-    primitive: Callable
+    primitive: Optional[Callable]
     supports: Optional[Callable[[MarsConfig], bool]] = None
+    index_kind: str = "replicated"
+    query_fn: Optional[Callable] = None
 
 
 # (stage, backend name) -> batch-level primitive + gate:
 #     detect: primitive(signals (R, S) f32, cfg) -> (means (R, E) f32,
 #             n_events (R,) int32)
-#     query:  primitive(table (N,) or (W, N), idx) -> clipped gather
+#     query:  primitive(table (N,) or (W, N), idx) -> clipped gather, or
+#             query_fn(keys (R, E), valid, index, cfg) -> (t_pos, hit_valid,
+#             per-read counters), seeding.query_index's contract
 #     sort:   primitive(keys (N, L) int32) -> rows sorted ascending
 #     dp:     primitive(q, t, valid (N, A), cfg) -> (f (N, A) f32,
 #             diag0 (N, A) int32)
 _REGISTRY: Dict[Tuple[str, str], Backend] = {}
 
 
-def register_backend(stage: str, name: str, primitive: Callable,
-                     supports=None) -> None:
+def register_backend(stage: str, name: str, primitive: Optional[Callable],
+                     supports=None, index_kind: str = "replicated",
+                     query_fn: Optional[Callable] = None) -> None:
     """Register ``primitive`` as backend ``name`` of ``stage``; ``supports``
-    (cfg -> bool) gates the configs it serves.  It must be bit-exact to the
-    stage's reference."""
+    (cfg -> bool) gates the configs it serves.  A ``query`` backend that is
+    not a clipped gather passes ``query_fn`` (and no primitive) and names
+    the index layout it consumes (``index_kind``, one of INDEX_KINDS).  It
+    must be bit-exact to the stage's reference."""
     if stage not in PRIMITIVE_STAGES:
         raise ValueError(f"stage {stage!r} takes no primitive; stages: "
                          f"{PRIMITIVE_STAGES}")
+    if index_kind not in INDEX_KINDS:
+        raise ValueError(f"unknown index kind {index_kind!r}; kinds: "
+                         f"{INDEX_KINDS}")
+    if (primitive is None) == (query_fn is None) or (
+            query_fn is not None and stage != "query"):
+        raise ValueError(f"backend {(stage, name)} needs exactly one of a "
+                         "primitive or (query stage only) a query_fn")
     key = (stage, name)
     if key in _REGISTRY:
         raise ValueError(f"backend {key} already registered")
-    _REGISTRY[key] = Backend(primitive, supports)
+    _REGISTRY[key] = Backend(primitive, supports, index_kind, query_fn)
 
 
 def _ensure_backend_loaded(name: str) -> None:
@@ -140,6 +172,12 @@ def resolve_plan(cfg: MarsConfig, backend: str = REFERENCE) -> Plan:
           and (fused.supports is None or fused.supports(cfg)))
     plan.append(("fused", backend if ok else REFERENCE))
     return tuple(plan)
+
+
+def plan_index_kind(plan: Plan) -> str:
+    """The index layout ``plan`` consumes (INDEX_KINDS): only the query
+    stage touches the index, so its backend decides."""
+    return _REGISTRY[("query", dict(plan)["query"])].index_kind
 
 
 def chain_primitives(plan: Plan, cfg: MarsConfig):
@@ -200,21 +238,24 @@ def register_segment_sum(name: str, fn) -> None:
     _SEGMENT_SUM[name] = fn
 
 
-def _plan_backend(plan: Plan) -> str:
-    """The backend ``plan`` was resolved for: the one its stages name
-    beside the reference, or the reference."""
-    names = {b for _, b in plan} - {REFERENCE}
-    return names.pop() if names else REFERENCE
+def _segment_sum(plan: Plan) -> Callable:
+    """The segment sum registered by a backend ``plan``'s stages name, else
+    the reference's: a backend without one (the tiered index's) keeps the
+    reference detection whole."""
+    names = sorted({b for _, b in plan} & set(_SEGMENT_SUM) - {REFERENCE})
+    return _SEGMENT_SUM[names[0] if names else REFERENCE]
 
 
 class CheapPrimitives(NamedTuple):
     """``plan``'s cheap-phase callables, bound to the config: ``fused``
     (signals, index) -> the whole cheap-phase contract, or None; the
     per-stage level's ``detector`` (signals -> (means, n_events)) and
-    ``gather`` (table, idx -> values)."""
+    either ``gather`` (table, idx -> values, for ``seeding.query_index``)
+    or ``query_fn`` (keys, valid, index -> the whole query)."""
     fused: Optional[Callable]
     detector: Callable
-    gather: Callable
+    gather: Optional[Callable]
+    query_fn: Optional[Callable] = None
 
 
 def cheap_primitives(plan: Plan, cfg: MarsConfig) -> CheapPrimitives:
@@ -224,12 +265,13 @@ def cheap_primitives(plan: Plan, cfg: MarsConfig) -> CheapPrimitives:
     det = functools.partial(_REGISTRY[("detect", p["detect"])].primitive,
                             cfg=cfg)
     if p["detect"] == REFERENCE:
-        det = functools.partial(
-            det, segment_sum=_SEGMENT_SUM[_plan_backend(plan)])
+        det = functools.partial(det, segment_sum=_segment_sum(plan))
+    q = _REGISTRY[("query", p["query"])]
     return CheapPrimitives(
         fused=None if b is None else functools.partial(b.fn, cfg=cfg),
-        detector=det,
-        gather=_REGISTRY[("query", p["query"])].primitive)
+        detector=det, gather=q.primitive,
+        query_fn=(None if q.query_fn is None
+                  else functools.partial(q.query_fn, cfg=cfg)))
 
 
 def missing_counters(counters) -> Tuple[str, ...]:

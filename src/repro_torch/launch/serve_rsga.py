@@ -18,12 +18,15 @@ CUDA card unless ``--device cpu`` is given (no card and no ``--device cpu``
 raises).  It prints the lines the JAX package's launcher prints, and its
 reports equal that launcher's bit for bit.
 
-``--shed`` closes the admission loop (SLO classes + saturation-aware
-shedding); ``--load-sweep 0.5,0.9,1.3,1.8`` serves the same trace shape at
-several offered loads, printing the shed-rate vs p50/p99 curve.
-``--fault-plan SEED`` (degraded-mode serving through the tiered storage
-path) needs the tiered index, which this package does not have yet: it
-raises.
+Degraded-mode serving: ``--fault-plan SEED`` maps through the tiered
+index (``--tiles`` host-resident tiles paged into ``--cache-slots`` device
+slots, ``--cache-replicas`` more for the hottest tiles, core/tiered.py)
+with a seeded ``core/faults.FaultPlan`` injected at tile page-in
+(checksummed retry and backoff, in virtual time), and prints the
+``[storage]`` and ``[skew]`` lines; ``--shed`` closes the admission loop
+(SLO classes + saturation-aware shedding); ``--load-sweep
+0.5,0.9,1.3,1.8`` serves the same trace shape at several offered loads,
+printing the shed-rate vs p50/p99 curve.
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 
-from repro_torch.core import (Mapper, ServeDriver, SLOClass, TenantBudget,
-                              build_index, costmodel, ssd_model, workload)
+from repro_torch.core import (FaultPlan, Mapper, ServeDriver, SLOClass,
+                              TenantBudget, build_index, costmodel,
+                              ssd_model, workload)
 from repro_torch.core.pipeline import check_device
 from repro_torch.signal import datasets, simulate
 
@@ -182,13 +186,6 @@ def run(argv=None) -> Optional[Served]:
                     help="torch device to map on (default cuda; 'cpu' runs "
                          "the plain torch versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.fault_plan is not None:
-        raise NotImplementedError(
-            "--fault-plan serves through the tiered index (host-resident "
-            "tiles paged into a device cache, with the fault plan injected "
-            "at page-in); that slice of the port does not exist yet, and "
-            "mapping through the resident index instead would not be the "
-            "degraded-mode run that was asked for")
     check_device(args.device)
 
     spec = datasets.DATASETS[args.dataset]
@@ -204,7 +201,14 @@ def run(argv=None) -> Optional[Served]:
           f"index={index.n_entries} entries {time.time()-t0:.1f}s")
 
     def make_mapper():
-        return Mapper(index, cfg, use_kernels=args.use_kernels,
+        if args.fault_plan is None:
+            return Mapper(index, cfg, use_kernels=args.use_kernels,
+                          device=args.device)
+        plan = FaultPlan(seed=args.fault_plan, p_read_error=0.02,
+                         p_corrupt=0.02, p_latency=0.05, latency_units=2.0)
+        return Mapper(index, cfg, backend="tiered", tiles=args.tiles,
+                      cache_slots=args.cache_slots,
+                      cache_replicas=args.cache_replicas, fault_plan=plan,
                       device=args.device)
 
     slos = None

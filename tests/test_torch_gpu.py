@@ -11,7 +11,12 @@ redesigned kernels: the sort's edge rows at every padded width, the DP's
 tie-heavy anchors, the fused cheap phase's edge reads and generic-instance
 configs, the segment sum's edge ids, the event detection's edge reads in
 both its instances (and the fused kernel's detection on the same reads),
-and the 1-D lookup's edge indices.  Tolerance: exact.
+and the 1-D lookup's edge indices.  Then the serving path (the prefix
+ladder's shapes, ``ServeDriver``'s kernels plan against its reference
+plan) and the tiered index (``Mapper(backend="tiered")`` against the
+resident kernels plan, a slot evicted while the chunk that reads it is
+still queued, back-to-back page-ins from pinned host tiles).
+Tolerance: exact.
 
 Marked ``gpu``; every test decides inside itself whether a card exists and
 skips without one:
@@ -21,6 +26,7 @@ skips without one:
 (``--noconftest``: ``tests/conftest.py`` imports the JAX package, which a
 machine with the card need not have.)
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -673,3 +679,114 @@ def test_serving_kernels_plan_equals_reference_plan(d1_serving, mode, shed):
     assert got.n_chunks > len(trace) // 32
     if shed:
         assert got.n_shed > 0
+
+
+# --------------------------------------------------------------------------- #
+# The tiered index: host tiles paged into device slots
+# --------------------------------------------------------------------------- #
+def _tiered_chunks(m, sig, chunk):
+    """``Mapper.map_signals``'s stream (prefetching the next chunk's tiles),
+    chunk by chunk."""
+    from repro_torch.core import driver
+    return list(driver.stream_map(
+        m.chunk_fn(), driver.array_chunks(sig, chunk),
+        prefetch=lambda s, nv: m.cache.prefetch(s, m.cfg, m.plan)))
+
+
+@pytest.mark.parametrize("slots", [4, 16])
+def test_tiered_mapper_equals_resident_kernels_plan(d1_serving, slots):
+    """D1 through 16 host tiles and 4 or 16 device slots (4: every chunk
+    takes the transient wide view) gives the resident index's kernels
+    plan, chunk by chunk: every output field and counter.  The tiered
+    plan launches no hand-written kernel; the host tiles are pinned."""
+    from repro_torch import kernels as K
+    from repro_torch.core import Mapper, driver
+    dev, cfg, reads, index = d1_serving
+    cfg = cfg.with_mode("ms_fixed")
+    sig = reads.signals
+    want = list(driver.stream_map(
+        Mapper(index["ms_fixed"], cfg, use_kernels=True,
+               device=dev).chunk_fn(), driver.array_chunks(sig, 32)))
+    m = Mapper(index["ms_fixed"], cfg, backend="tiered", tiles=16,
+               cache_slots=slots, device=dev)
+    assert m.cache._host_ent.is_pinned() and m.cache._host_bstart.is_pinned()
+    K.reset_launches()
+    got = _tiered_chunks(m, sig, 32)
+    torch.cuda.synchronize()
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES
+    assert len(got) == len(want) == 3
+    for (gc, gn, g), (wc, wn, w) in zip(got, want):
+        assert (gc, gn) == (wc, wn)
+        for f in ("t_start", "score", "mapped", "n_events"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+        assert g.counters == w.counters
+    assert m.cache.n_chunks == 3 and m.cache.misses >= 1
+    assert m.cache.paged_bytes == m.cache.misses * m.cache.tiered.tile_nbytes
+
+
+def test_tiered_slot_evicted_while_its_chunk_is_queued(d1_serving):
+    """A page-in overwrites persistent slots in place, on the current
+    stream: a chunk's query enqueued before the overwrite (held behind a
+    sleep kernel, so it has not run yet) still reads the slots' old
+    planes.  The cheap phase over the view equals the same call made
+    before any overwrite, and the resident index's at every hit."""
+    from repro_torch.core import Mapper, pipeline, stages
+    from repro_torch.core.index import index_arrays
+    dev, cfg, reads, index = d1_serving
+    cfg = cfg.with_mode("ms_fixed")
+    m = Mapper(index["ms_fixed"], cfg, backend="tiered", tiles=16,
+               cache_slots=16, device=dev)
+    sig = reads.signals[:32]
+    view = m.cache.prepare(sig, cfg, m.plan)
+    want = pipeline.cheap_phase(None, view, cfg, m.plan)  # pre-pass keys
+    res = pipeline.cheap_phase(torch.from_numpy(sig).to(dev),
+                               index_arrays(index["ms_fixed"], dev), cfg,
+                               stages.resolve_plan(cfg, stages.REFERENCE))
+    torch.cuda.synchronize()
+    resident = [int(t) for t in m.cache._slot_tile if t >= 0]
+    assert len(resident) >= 2
+    torch.cuda._sleep(1_000_000_000)      # ~0.5 s: hold the stream
+    got = pipeline.cheap_phase(None, view, cfg, m.plan)
+    # rotate every resident tile into another tile's slot while the query
+    # above still waits behind the sleep
+    slots = [s for s, t in enumerate(m.cache._slot_tile) if t >= 0]
+    for s, t in zip(slots, resident[1:] + resident[:1]):
+        m.cache._load_slot(s, t)
+    assert torch.cuda.current_stream().query() is False
+    torch.cuda.synchronize()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert all(torch.equal(got[3][k], want[3][k]) for k in want[3])
+    hit = res[2]
+    assert torch.equal(got[2], hit) and bool(hit.any())
+    assert torch.equal(got[1][hit], res[1][hit])
+    assert all(torch.equal(got[3][k], res[3][k]) for k in res[3])
+
+
+def test_tiered_pages_from_pinned_memory_twice_in_a_row(d1_serving):
+    """Two asynchronous page-ins into one slot back to back, and two wide
+    views built back to back, each from pinned host tiles: every device
+    plane ends up with its own tile's bytes."""
+    from repro_torch.core import Mapper
+    dev, cfg, _, index = d1_serving
+    m = Mapper(index["ms_fixed"], cfg.with_mode("ms_fixed"),
+               backend="tiered", tiles=16, cache_slots=1, device=dev)
+    c, ti = m.cache, m.cache.tiered
+    c._load_slot(0, 3)
+    c._load_slot(0, 7)
+    hist = np.ones(16, np.int64)
+    v1 = c._overflow_view(np.arange(8), hist)
+    v2 = c._overflow_view(np.arange(8, 16), hist)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(c._dev_bstart[0].cpu().numpy(),
+                                  ti.tile_bucket_start[7])
+    np.testing.assert_array_equal(c._dev_ent[:, 0].cpu().numpy(),
+                                  ti.tile_entries_packed[7])
+    for v, tiles in ((v1, range(8)), (v2, range(8, 16))):
+        for i, t in enumerate(tiles):
+            np.testing.assert_array_equal(
+                v["t_bucket_start"][i].cpu().numpy(),
+                ti.tile_bucket_start[t])
+            np.testing.assert_array_equal(
+                v["t_entries_packed"][:, i].cpu().numpy(),
+                ti.tile_entries_packed[t])

@@ -298,8 +298,16 @@ def test_launcher_equals_jax(case, capsys):
 
 
 def test_launcher_refuses_fault_plan():
-    with pytest.raises(NotImplementedError, match="tiered index"):
-        serve_rsga.main(["--fault-plan", "3", "--device", "cpu"])
+    """``--fault-plan`` serves through the tiered index, whose tiles split
+    the buckets by powers of two: both launchers refuse any other tile
+    count.  (``tests/test_torch_tiered.py`` holds the path itself against
+    the JAX launcher.)"""
+    argv = ["--dataset", "D1", "--streams", "1", "--reads-per-stream", "2",
+            "--fault-plan", "3", "--tiles", "6"]
+    with pytest.raises(ValueError, match="power of two"):
+        jax_serve_rsga.main(argv)
+    with pytest.raises(ValueError, match="power of two"):
+        serve_rsga.main(argv + ["--device", "cpu"])
 
 
 def test_serve_driver_guards(data):
