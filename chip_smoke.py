@@ -65,7 +65,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                the very inputs
                each route of phase 4 gave them, and on inputs built to
                break them (the sort's edge rows at 512 x 4096 and 512 x
-               8192, the DP's tie-heavy anchors at 512 x 512).
+               8192, the DP's tie-heavy anchors at 512 x 512); the DP's
+               band kernel at B = 16 and 64 on D5's anchors, tie-heavy
+               anchors and anchors whose tying predecessors share a lane
+               (and at B = 128 and 300 on the last two), and rows of 16384
+               keys through the sort wrapper's counted torch.sort route.
                Tolerance: exact.
                Times from warmed CUDA events; ``bound_ms`` is the least time
                the card could take (bytes over 3.35 TB/s, operations over
@@ -90,9 +94,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``map_realtime``'s result.  Then a profiled D5 pass, and
                each kernel against its plain version at every prefix's
                shapes (R = 32, S = 256..1024, E = 51..192);
-8. summary   — one JSON line of per-kernel results, then the last line
+8. sharded   — the multi-device mapper (``Mapper(mesh=...)``): the
+               single-device runs first, then 4 ranks sharing the card
+               through gloo (mesh (2, 2) ('data', 'model'), spawned by
+               ``launch/mesh.run_ranks``; each rank only loads the built
+               library): the kernels plan over D5's 4096 reads in chunks
+               of 512 (cheap_fused, bitonic_sort and chain_dp must launch
+               on every rank, the per-stage kernels on none), ring, a2a
+               and the tiered plan (16 tiles, 4 slots) over 1024 reads (no
+               hand kernel may launch), and a D1 serving trace (8 streams
+               x 16 reads, chunks of 32, the prefix ladder) through the
+               kernels plan and a2a.  Every rank must equal the single
+               device chunk by chunk, and the serving driver state too.
+               Reads/s against the single device, collective bytes a chunk
+               by kind, the host staging of gloo's payloads, peak memory
+               and the backend of each rank are reported; then every rank
+               maps the kernels plan's reads again at its pinned thread
+               count and at the parent's, and once under torch.profiler
+               (``[sharded-profile]``: its host time inside collective
+               calls, staging, blocked on its device and dispatching,
+               beside the device's busy time).  On a host with 2 or more
+               cards the same runs follow on one NCCL rank a card;
+9. summary   — one JSON line of per-kernel results, then the last line
                ``{"ok": true, "device": {...}}``.  Every log line also goes
                to ``chiprun_out/chip_smoke.log``.
+
+``python3 chip_smoke.py --sharded-only`` runs phases 1-2, the datasets and
+phase 8 alone (the NCCL run too on a host of several cards), records them
+in ``chiprun_out/chip_smoke_sharded.json`` and prints no result line.
 
 It imports neither JAX nor the JAX package.
 """
@@ -100,6 +129,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -672,10 +702,74 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
     # the summary line's figures: D5's full chunk at full width, the route
     # every D5 main-path chunk takes
     primary = f"D5 full/{EH}"
+    # the shipped B = 32 instance again at the main path's inputs: its
+    # spread between repeats, the noise its time is read against
+    d5 = inputs[primary]["dp"]
+    b32 = [time_ms(lambda: dp_ops.chain_dp(*d5, cfg), 20) for _ in range(3)]
+    log(f"[kernels] chain_dp B=32 D5 full ({R}, {A}) repeats "
+        f"{[round(x, 5) for x in b32]} ms")
+    # the band kernel (any chain_band but 32): D5's full-width anchors,
+    # tie-heavy anchors, and anchors whose tying predecessors lie 32 apart
+    # (one lane of the band kernel decides the tie); B = 16 and 64 keep the
+    # band in registers (1 and 2 slots a lane), B = 128 and 300 in the
+    # scratch row
+    from repro_torch.kernels.fixtures import lane_tie_anchors
+    lane = (torch.from_numpy(x).to(dev) for x in lane_tie_anchors(R, A))
+    cases = dict(full=d5, ties=(sq, st, sv), lane_ties=tuple(lane))
+    for B in (16, 64, 128, 300):
+        cb = cfg.replace(chain_band=B)
+        for label, (bq, bt, bv) in cases.items():
+            if B > 64 and label == "full":
+                continue
+            K.reset_launches()
+            g = dp_ops.chain_dp(bq, bt, bv, cb)
+            want = chain_dp_ref(bq, bt, bv, cb)
+            torch.cuda.synchronize()
+            check_launches(f"chain_dp B={B} {label}", K.LAUNCHES,
+                           ("chain_dp",))
+            err = max(assert_equal(f"chain_dp B={B} {label} {n}", a, b)
+                      for n, a, b in zip(("f", "diag0"), g, want))
+            k_ms = time_ms(lambda: dp_ops.chain_dp(bq, bt, bv, cb), 20)
+            p_ms = (time_ms(lambda: chain_dp_ref(bq, bt, bv, cb), 1)
+                    if label == "full" else None)
+            b_ms, b_by = dp_bound(R, A, B)
+            dp_shapes.append(dict(
+                route=f"B={B} {label} {R}x{A}", on_main_path=False,
+                shape=f"({R}, {A}), B={B}", max_abs_err=err, ms=k_ms,
+                plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by))
+            log(f"[kernels] chain_dp B={B} {label} ({R}, {A}) equal; "
+                f"kernel {k_ms:.4f} ms"
+                + (f", plain {p_ms:.3f} ms" if p_ms is not None else "")
+                + f", bound {b_ms:.5f} ms ({b_by})")
+    # rows past one kernel block: the sort wrapper's counted torch.sort
+    # route, as the reference's sort_batch takes jnp.sort there.  Not a
+    # hand kernel, so it stays out of the kernels line; it is held against
+    # numpy's sort on the host (tests/test_torch_chain.py holds it against
+    # the reference's sort_batch)
+    L = 16384
+    host_rows = edge_rows(np.random.default_rng(L), R, L)
+    rows = torch.from_numpy(host_rows).to(dev)
+    K.reset_launches()
+    g = sort_ops.sort_rows(rows)
+    torch.cuda.synchronize()
+    if K.LAUNCHES["sort_rows_library"] != 1 or K.LAUNCHES["bitonic_sort"]:
+        raise AssertionError(f"sort rows of {L}: launches {K.LAUNCHES}")
+    err = assert_equal(f"sort library route ({R}, {L})", g.cpu(),
+                       torch.from_numpy(np.sort(host_rows, axis=1)))
+    k_ms = time_ms(lambda: sort_ops.sort_rows(rows), 20)
+    b_ms, b_by = sort_bound(R, L)
+    results["sort_rows_library"] = dict(
+        route="library", call="torch.sort", shape=f"({R}, {L})",
+        max_abs_err=err, ms=k_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"[kernels] sort_rows ({R}, {L}) took the counted torch.sort route "
+        f"(no hand kernel) and equals numpy's sort; {k_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by})")
     for name, shapes in (("bitonic_sort", sort_shapes),
                          ("chain_dp", dp_shapes)):
         first = next(r for r in shapes if r["route"] == primary)
         results[name] = dict(first, by_shape=shapes)
+    results["chain_dp"]["b32_repeats_ms"] = b32
     K.reset_launches()
     return results
 
@@ -1368,14 +1462,12 @@ def phase_new_kernels(cfg, reads, index, dev):
     return results
 
 
-def profile_summary(prof, wall: float, label: str, n_chunks: int,
-                    trace_name: str) -> dict:
-    """What one profiled pass shows: the device's busy time (the union of
-    its kernel, copy and memset intervals in the exported trace; the sum
-    of every op's self device time would count a kernel under its aten op
-    and again under its own name), device time by kernel, host time by
-    op, kernel launches and stream syncs.  The trace goes to
-    ``chiprun_out/trace_name``."""
+def device_busy(prof, trace_name: str):
+    """The device's busy seconds in a profiled pass (the union of its
+    kernel, copy and memset intervals in the exported trace; the sum of
+    every op's self device time would count a kernel under its aten op
+    and again under its own name) and {kernel: (count, device us)}.  The
+    trace goes to ``chiprun_out/trace_name``."""
     import gzip
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -1396,7 +1488,16 @@ def profile_summary(prof, wall: float, label: str, n_chunks: int,
     for t0, t1 in sorted(spans):
         busy_us += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-    busy = busy_us / 1e6
+    return busy_us / 1e6, by_kernel
+
+
+def profile_summary(prof, wall: float, label: str, n_chunks: int,
+                    trace_name: str) -> dict:
+    """What one profiled pass shows: the device's busy time
+    (``device_busy``), device time by kernel, host time by op, kernel
+    launches and stream syncs.  The trace goes to
+    ``chiprun_out/trace_name``."""
+    busy, by_kernel = device_busy(prof, trace_name)
     ev = prof.key_averages()
     calls = {e.key: e.count for e in ev}
     syncs = calls.get("cudaStreamSynchronize", 0)
@@ -1783,6 +1884,338 @@ def phase_serve(data, dev):
                 kernels=serve_kernels(cfg, reads, index, dev))
 
 
+# The sharded phase: a (2, 2) ('data', 'model') mesh of 4 gloo ranks sharing
+# the card (NCCL refuses two ranks on one device); on a host with 2 or more
+# cards also one NCCL rank a card.  The kernels plan maps READS reads; ring,
+# a2a and the tiered plan SHARDED_READS (their plain DP is host-paced); the
+# serving trace is D1's, 8 streams x 16 reads in chunks of 32 (8 rows a rank).
+SHARDED_MESH = ((2, 2), ("data", "model"))
+SHARDED_READS = 1024
+SHARDED_TILES, SHARDED_SLOTS = 16, 4
+SHARDED_SERVE_ARGS = ("--dataset", "D1", "--mode", "ms_fixed", "--streams",
+                      "8", "--reads-per-stream", "16", "--chunk", "32",
+                      "--early-term", "--load", "0.7")
+# (run name, Mapper arguments, reads, the kernels it launches)
+SHARDED_RUNS = (("kernels", dict(use_kernels=True), READS, FUSED_PATH),
+                ("ring", dict(backend="ring"), SHARDED_READS, ()),
+                ("a2a", dict(backend="a2a"), SHARDED_READS, ()),
+                ("tiered", dict(backend="tiered", tiles=SHARDED_TILES,
+                                cache_slots=SHARDED_SLOTS), SHARDED_READS,
+                 ()))
+
+
+def host_out(out):
+    """A chunk's MapOutput as numpy fields and int counters."""
+    return ({f: getattr(out, f).cpu().numpy()
+             for f in ("t_start", "score", "mapped", "n_events")},
+            {k: int(v) for k, v in out.counters.items()})
+
+
+def timed_chunks(fn, sig, n_reads):
+    """Each chunk of ``sig[:n_reads]`` through ``fn`` (host outputs), the
+    host-clock seconds of the whole run and of each chunk (the output's
+    copy to the host ends each)."""
+    import torch
+    outs, walls = [], []
+    t0 = time.perf_counter()
+    for i in range(0, n_reads, CHUNK):
+        t1 = time.perf_counter()
+        outs.append(host_out(fn(sig[i:i + CHUNK], CHUNK)))
+        walls.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0, walls
+
+
+def sharded_rank(job):
+    """One rank of the sharded phase (spawned by ``run_ranks``): every run
+    of SHARDED_RUNS chunk by chunk, and the serving trace through the
+    kernels plan and a2a, with the launches, chain routes, collective
+    bytes and staging time of each, and the rank's peak device memory."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import Mapper, ServeDriver, pipeline
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*job["mesh"], backend=job["backend"])
+    # first use of every collective outside the counted runs (NCCL builds
+    # a group's communicator at its first collective)
+    z = torch.zeros(mesh.shape["model"], dtype=torch.int32,
+                    device=mesh.device)
+    mesh.ring_shift([z], "model")
+    mesh.all_to_all(z, "model")
+    mesh.all_reduce_sum(mesh.all_gather_rows(z))
+    cfg, index, sig = job["cfg"], job["index"], job["signals"]
+    res = dict(rank=mesh.rank, coords=mesh.coords, backend=mesh.backend,
+               device=str(mesh.device),
+               card=torch.cuda.get_device_name(mesh.device), runs={},
+               serve={})
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        pipeline.CHAIN_ROUTES.clear()
+        mesh.stats.clear()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        out, wall, chunk_walls = fn()
+        return dict(out=out, wall_s=wall, chunk_walls=chunk_walls,
+                    launches=dict(K.LAUNCHES),
+                    routes={f"{b}/{r}x{w}": n for (b, r, w), n
+                            in sorted(pipeline.CHAIN_ROUTES.items())},
+                    stats=dict(mesh.stats),
+                    peak=torch.cuda.max_memory_allocated(mesh.device))
+
+    for name, kw, n_reads, _ in SHARDED_RUNS:
+        fn = Mapper(index, cfg, mesh=mesh, **kw).chunk_fn()
+        if name == "kernels":
+            fn(sig[:CHUNK], CHUNK)         # warm: the library, the allocator
+        res["runs"][name] = counted(lambda: timed_chunks(fn, sig, n_reads))
+    for name in ("kernels", "a2a"):
+        sd = ServeDriver(Mapper(job["d1_index"], job["d1_cfg"], backend=name,
+                                mesh=mesh), **job["serve_kw"])
+
+        def serve():
+            t0 = time.perf_counter()
+            sd.serve_trace(job["trace"])
+            torch.cuda.synchronize()
+            return driver_state(sd), time.perf_counter() - t0, None
+        res["serve"][name] = counted(serve)
+        res["serve"][name]["n_chunks"] = sd.n_chunks
+    # where a kernels-plan chunk's time goes on each rank, after the
+    # counted runs: the plan at run_ranks' pinned thread count, at the
+    # parent's, and pinned again, then pinned under torch.profiler
+    fn = Mapper(index, cfg, mesh=mesh, use_kernels=True).chunk_fn()
+    pinned = torch.get_num_threads()
+    res["threads"] = []
+    for n in (pinned, job["threads"], pinned):
+        torch.set_num_threads(n)
+        _, wall, cw = timed_chunks(fn, sig, READS)
+        res["threads"].append(dict(threads=n, wall_s=wall, chunk_walls=cw))
+    torch.set_num_threads(pinned)
+    res["profile"] = profile_rank(
+        mesh, fn, sig, f"trace_sharded_{mesh.backend}_rank{mesh.rank}.json.gz")
+    return res
+
+
+def profile_rank(mesh, fn, sig, trace_name) -> dict:
+    """One rank's kernels-plan pass over READS reads under torch.profiler,
+    split on the rank's host clock: inside collective calls (under gloo
+    the whole exchange, waits on slower peers included), staging copies,
+    blocked on the rank's own device (stream syncs and blocking copies),
+    and the rest (host dispatch); beside it the device's busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    mesh.stats.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall, cw = timed_chunks(fn, sig, READS)
+    stats = dict(mesh.stats)
+    busy, by_kernel = device_busy(prof, trace_name)
+    host = {e.key: (e.count, e.self_cpu_time_total / 1e3)
+            for e in prof.key_averages()}
+    blocked = sum(host.get(k, (0, 0.0))[1] for k in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize", "cudaMemcpyAsync"))
+    coll = 1e3 * sum(v for k, v in stats.items()
+                     if k.endswith("_s") and k != "staging_s")
+    staging = 1e3 * stats.get("staging_s", 0.0)
+    return dict(
+        wall_ms=wall * 1e3, chunk_walls_ms=[w * 1e3 for w in cw],
+        device_busy_ms=busy * 1e3, collective_ms=coll, staging_ms=staging,
+        blocked_ms=blocked, rest_ms=wall * 1e3 - coll - staging - blocked,
+        kernel_launches=host.get("cudaLaunchKernel", (0, 0.0))[0],
+        top_host_ops=[(k, n, ms) for k, (n, ms) in sorted(
+            host.items(), key=lambda kv: -kv[1][1])[:8]],
+        top_kernels=[(k[:60], n, us / 1e3) for k, (n, us) in sorted(
+            by_kernel.items(), key=lambda kv: -kv[1][1])[:5]])
+
+
+def check_sharded(label, outs, solo, runs_solo):
+    """Every rank's chunks equal the single-device run's, and each run
+    launched exactly its kernels on every rank."""
+    for r in outs:
+        for name, _, n_reads, expected in SHARDED_RUNS:
+            got = r["runs"][name]
+            check_launches(f"{label} rank {r['rank']} {name}",
+                           got["launches"], expected)
+            want = solo[runs_solo[name]]
+            if (len(got["out"]) != n_reads // CHUNK
+                    or not chunks_equal(got["out"], want)):
+                raise AssertionError(f"{label} rank {r['rank']} {name}: "
+                                     "chunks differ from the single device")
+        for name in ("kernels", "a2a"):
+            got = r["serve"][name]
+            check_launches(f"{label} rank {r['rank']} serve {name}",
+                           got["launches"],
+                           FUSED_PATH if name == "kernels" else ())
+            if got["out"] != solo["serve"]:
+                raise AssertionError(f"{label} rank {r['rank']} serve "
+                                     f"{name}: driver state differs from "
+                                     "the single device's")
+
+
+def chunks_equal(got, want) -> bool:
+    """Chunk by chunk (as many as ``got`` holds), every field (dtype, shape
+    and values) and every counter equal."""
+    import numpy as np
+    return len(got) <= len(want) and all(
+        g[1] == w[1] and all(g[0][f].dtype == w[0][f].dtype
+                             and np.array_equal(g[0][f], w[0][f])
+                             for f in w[0])
+        for g, w in zip(got, want))
+
+
+def sharded_report(label, outs, walls, spawn_s):
+    """Log and return what one mesh run measured: reads/s of each run
+    against the single device's, collective bytes a chunk by kind, host
+    staging a chunk, peak memory and backend per rank."""
+    rows = {}
+    for name, _, n_reads, _ in [*SHARDED_RUNS,
+                                ("serve kernels", None, None, None),
+                                ("serve a2a", None, None, None)]:
+        per = [r["serve"][name.split()[1]] if name.startswith("serve")
+               else r["runs"][name] for r in outs]
+        n_chunks = (per[0]["n_chunks"] if name.startswith("serve")
+                    else n_reads // CHUNK)
+        wall = max(p["wall_s"] for p in per)
+        stats = per[0]["stats"]
+        by_kind = {k[:-6]: stats[k] / n_chunks for k in sorted(stats)
+                   if k.endswith("_bytes") and k != "staged_bytes"}
+        coll_ms = 1e3 * sum(stats.get(f"{k}_s", 0.0)
+                            for k in by_kind) / n_chunks
+        cw = per[0]["chunk_walls"]
+        row = dict(
+            wall_s=wall, solo_wall_s=walls.get(name),
+            reads_per_s=None if n_reads is None else n_reads / wall,
+            solo_reads_per_s=(None if n_reads is None
+                              else n_reads / walls[name]),
+            chunks=n_chunks, bytes_per_chunk=by_kind,
+            staged_bytes_per_chunk=stats.get("staged_bytes", 0) / n_chunks,
+            staging_ms_per_chunk=stats.get("staging_s", 0.0) / n_chunks
+            * 1e3,
+            collective_ms_per_chunk=coll_ms,
+            chunk_walls_rank0=cw,
+            peak_bytes_by_rank=[p["peak"] for p in per],
+            routes_rank0=per[0]["routes"],
+            launches_by_rank=[p["launches"] for p in per])
+        rows[name] = row
+        rate = ("" if n_reads is None else
+                f"{row['reads_per_s']:.1f} reads/s (single device "
+                f"{row['solo_reads_per_s']:.1f}), ")
+        log(f"[sharded] {label} {name}: {rate}{wall:.3f} s wall for "
+            f"{n_chunks} chunks (single device {walls.get(name, 0):.3f} s); "
+            f"collective bytes a chunk a rank {by_kind}; staged "
+            f"{row['staged_bytes_per_chunk']:.0f} B and "
+            f"{row['staging_ms_per_chunk']:.3f} ms a chunk; "
+            f"{coll_ms:.3f} ms a chunk in collective calls (rank 0)"
+            + ("" if cw is None else
+               f", chunk walls {[round(w * 1e3, 2) for w in cw]} ms")
+            + "; peak "
+            f"{[round(p / 1e6, 1) for p in row['peak_bytes_by_rank']]} MB "
+            "by rank")
+    for r in outs:
+        p, th = r["profile"], r["threads"]
+        log(f"[sharded-profile] {label} rank {r['rank']}: "
+            f"{READS // CHUNK} kernels-plan chunks in {p['wall_ms']:.3f} ms "
+            f"under torch.profiler (host clock): inside collective calls "
+            f"{p['collective_ms']:.3f}, staging {p['staging_ms']:.3f}, "
+            f"blocked on its device {p['blocked_ms']:.3f}, the rest (host "
+            f"dispatch) {p['rest_ms']:.3f}; device busy "
+            f"{p['device_busy_ms']:.3f} ms, {p['kernel_launches']} "
+            f"launches; chunk walls "
+            f"{[round(w, 2) for w in p['chunk_walls_ms']]} ms; unprofiled "
+            "walls at "
+            + ", ".join(f"{t['threads']} threads {t['wall_s'] * 1e3:.3f} ms"
+                        for t in th)
+            + "; top host ops "
+            + ", ".join(f"{k} x{n} {ms:.2f} ms"
+                        for k, n, ms in p["top_host_ops"]))
+    log(f"[sharded] {label}: backends {sorted({r['backend'] for r in outs})}"
+        f", devices {[r['device'] for r in outs]}, ranks spawned and joined "
+        f"in {spawn_s:.1f} s; every rank equals the single device chunk by "
+        "chunk, the serving driver state included")
+    return dict(backend=outs[0]["backend"], ranks=len(outs),
+                coords=[r["coords"] for r in outs], spawn_s=spawn_s,
+                runs=rows, profile_by_rank=[r["profile"] for r in outs],
+                threads_by_rank=[r["threads"] for r in outs])
+
+
+def phase_sharded(data, dev):
+    """The sharded mapper (``Mapper(mesh=...)``) on 4 gloo ranks sharing the
+    card, and on one NCCL rank a card where the host has 2 or more: every
+    rank must equal the single-device run chunk by chunk (computed here
+    first), the kernels plan must launch its kernels on every rank and the
+    other plans none, and the serving driver state must equal the single
+    device's."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import Mapper
+    from repro_torch.launch import serve_rsga
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.core import ServeDriver
+    cfg, _, reads, index = data["D5"]
+    sig = reads.signals
+    # the single-device runs, each plan's own where it has one (ring and a2a
+    # have none: they are held against the reference plan)
+    solo, solo_walls = {}, {}
+    for name, kw, n_reads in (
+            ("kernels", dict(use_kernels=True), READS),
+            ("reference", {}, SHARDED_READS),
+            ("tiered", dict(backend="tiered", tiles=SHARDED_TILES,
+                            cache_slots=SHARDED_SLOTS), SHARDED_READS)):
+        fn = Mapper(index, cfg, device=dev, **kw).chunk_fn()
+        if name == "kernels":
+            fn(sig[:CHUNK], CHUNK)
+        solo[name], solo_walls[name], _ = timed_chunks(fn, sig, n_reads)
+    for name in ("reference", "tiered"):
+        if not chunks_equal(solo[name], solo["kernels"]):
+            raise AssertionError(f"single device: the {name} plan differs "
+                                 "from the kernels plan")
+    served = serve_rsga.run([*SHARDED_SERVE_ARGS, "--use-kernels"])
+    solo["serve"] = driver_state(served.driver)
+    plain = ServeDriver(Mapper(served.index, served.cfg, device=dev),
+                        **served.serve_kw)
+    t0 = time.perf_counter()
+    plain.serve_trace(served.trace)
+    torch.cuda.synchronize()
+    if driver_state(plain) != solo["serve"]:
+        raise AssertionError("single device: the serving driver states of "
+                             "the kernels and reference plans differ")
+    walls = {"kernels": solo_walls["kernels"],
+             "ring": solo_walls["reference"], "a2a": solo_walls["reference"],
+             "tiered": solo_walls["tiered"],
+             "serve kernels": served.wall_s,
+             "serve a2a": time.perf_counter() - t0}
+    K.reset_launches()
+    job = dict(mesh=SHARDED_MESH, backend="gloo", cfg=cfg, index=index,
+               signals=sig, d1_index=served.index, d1_cfg=served.cfg,
+               serve_kw=served.serve_kw, trace=served.trace,
+               threads=torch.get_num_threads())
+    # which single-device run each sharded run is held against
+    runs_solo = {"kernels": "kernels", "ring": "reference",
+                 "a2a": "reference", "tiered": "tiered"}
+    out = {}
+    t0 = time.time()
+    outs = run_ranks(sharded_rank, 4, job, backend="gloo", timeout=600)
+    spawn_s = time.time() - t0
+    check_sharded("gloo (2, 2)", outs, solo, runs_solo)
+    out["gloo"] = sharded_report("gloo (2, 2)", outs, walls, spawn_s)
+    n = torch.cuda.device_count() // 2 * 2
+    if n >= 2:
+        shape = (n // 2, 2)
+        t0 = time.time()
+        outs_n = run_ranks(sharded_rank, n,
+                           dict(job, mesh=(shape, SHARDED_MESH[1]),
+                                backend="nccl"),
+                           backend="nccl", timeout=600)
+        check_sharded(f"nccl {shape}", outs_n, solo, runs_solo)
+        out["nccl"] = sharded_report(f"nccl {shape}", outs_n, walls,
+                                     time.time() - t0)
+    else:
+        log("[sharded] one card: no NCCL run (NCCL needs a card per rank)")
+    out["rank_launches"] = [r["runs"]["kernels"]["launches"] for r in outs]
+    return out
+
+
 def main() -> int:
     try:
         return run()
@@ -1819,6 +2252,17 @@ def run() -> int:
     build_record = timed("build", phase_build)
     data = timed("datasets", lambda: {k: make_dataset(k)
                                       for k in ("D1", "D5")})
+    if "--sharded-only" in sys.argv[1:]:
+        # the sharded phase alone (on a host of several cards, its NCCL
+        # run); no kernels line and no result line
+        sharded = timed("sharded", phase_sharded, data, dev)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_sharded.json").write_text(json.dumps(
+            dict(device=name, nvidia_smi=smi, sharded=sharded,
+                 phase_seconds=seconds), indent=1, default=str))
+        log(smi)
+        return 0
     maps = timed("map", lambda: {k: run_map(k, *data[k], dev)
                                  for k in ("D1", "D5")})
     floats = timed("float", phase_float, data, dev)
@@ -1844,6 +2288,7 @@ def run() -> int:
     timed("profile", profiles)
     launcher = timed("launcher", phase_launcher)
     serve = timed("serve", phase_serve, data, dev)
+    sharded = timed("sharded", phase_sharded, data, dev)
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)
@@ -1853,7 +2298,9 @@ def run() -> int:
             **{f"D5 tiered {k}": v["launches"]
                for k, v in tiered_["runs"].items()},
             **{f"serve {k}": v["launches"]
-               for k, v in serve["runs"].items()}}
+               for k, v in serve["runs"].items()},
+            **{f"sharded kernels rank {r}": v
+               for r, v in enumerate(sharded["rank_launches"])}}
     sources = {
         "cheap_fused": ("src/repro_torch/csrc/cheap_fused.cu",
                         "src/repro/kernels/cheap_fused/cheap_fused.py:367",
@@ -1886,6 +2333,7 @@ def run() -> int:
             name=k, route="cuda", source=src, replaces=rep,
             launches=runs[run][k], launches_run=run,
             launches_by_run={n: v[k] for n, v in runs.items()},
+            sharded_launches=[v[k] for v in sharded["rank_launches"]],
             equal=True, max_abs_err=r["max_abs_err"], ms=r["ms"],
             kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -1898,10 +2346,12 @@ def run() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(device=name, nvidia_smi=smi, build=build_record, kernels=summary,
+             library_routes=dict(sort_rows_library=kern["sort_rows_library"]),
              launch_floor_ms=floor, map=maps,
              float=floats, perstage=perstage, tiered=tiered_,
              launcher=launcher,
-             routes=routes, serve=serve, phase_seconds=seconds,
+             routes=routes, serve=serve, sharded=sharded,
+             phase_seconds=seconds,
              seconds=time.time() - t_all),
         indent=1,
         default=str))
@@ -1922,6 +2372,12 @@ def run() -> int:
                                "virtual_makespan", "p50", "p99",
                                "launches_per_chunk")}
          for k, v in serve["runs"].items()}))
+    log("[sharded-summary] " + json.dumps(dict(
+        card=smi, **{b: {k: {f: v[f] for f in (
+            "reads_per_s", "solo_reads_per_s", "bytes_per_chunk",
+            "staging_ms_per_chunk", "peak_bytes_by_rank")}
+            for k, v in sharded[b]["runs"].items()}
+            for b in ("gloo", "nccl") if b in sharded})))
     log(f"[seconds] {time.time() - t_all:.1f}")
     log(smi)
     print(json.dumps({"kernels": summary}))

@@ -8,6 +8,9 @@ Public API:
                           build_index_streaming), paged by core/tiered.py
     stages                backend registry + plan resolution
     Mapper / map_chunk    online read mapping (CUDA by default)
+    map_chunk_sharded     the chunk program over a mesh (launch/mesh.py)
+    partition_index       bucket-range partitions for the ring/a2a
+                          schedules (repartition_index: drive-loss fold)
     driver                streaming host driver + ProgressLog
     ServeDriver           continuous-batching multi-stream serving driver
     SLOClass              serving class (priority/deadline/shed contract)
@@ -24,9 +27,9 @@ from repro_torch.core.faults import (FaultPlan, InjectedPrefetchError,
 from repro_torch.core.index import (Index, TieredIndex, build_index,
                                     build_index_streaming, index_arrays,
                                     index_from_numpy, partition_index,
-                                    tier_index)
+                                    repartition_index, tier_index)
 from repro_torch.core.pipeline import (MapOutput, Mapper, map_chunk,
-                                       score_accuracy)
+                                       map_chunk_sharded, score_accuracy)
 from repro_torch.core.server import (ClassReport, ServeDriver, SLOClass,
                                      StreamReport, TenantBudget, TenantReport)
 
@@ -34,7 +37,8 @@ __all__ = [
     "DEFAULT", "MODES", "MODE_RH2", "MODE_MS_FLOAT", "MODE_MS_FIXED",
     "MarsConfig", "Index", "build_index", "index_arrays", "index_from_numpy",
     "TieredIndex", "tier_index", "build_index_streaming", "partition_index",
-    "MapOutput", "Mapper", "map_chunk", "driver", "stages", "score_accuracy",
+    "repartition_index", "MapOutput", "Mapper", "map_chunk",
+    "map_chunk_sharded", "driver", "stages", "score_accuracy",
     "costmodel", "ServeDriver", "StreamReport", "SLOClass", "ClassReport",
     "TenantBudget", "TenantReport", "FaultPlan", "TileReadError",
     "InjectedPrefetchError", "sample_fault_plans",

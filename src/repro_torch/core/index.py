@@ -191,6 +191,18 @@ def index_arrays(index: Index, device) -> Dict[str, torch.Tensor]:
 # --------------------------------------------------------------------------- #
 # Bucket-range partitioning
 # --------------------------------------------------------------------------- #
+# The mesh axis holding index partitions: the ONE name the partitioned query
+# backends' collectives and the partition layouts key on (core/distributed.py,
+# distributed/sharding.py).
+INDEX_AXIS = "model"
+
+# The keys of a partitioned index (every leaf has a leading (n_parts,)
+# partition axis, split over INDEX_AXIS by distributed/sharding.py).  The
+# entry plane is the packed [keycnt | t_pos] layout of ``entries_packed``,
+# per partition.
+PARTITIONED_INDEX_KEYS = ("p_bucket_start", "p_entries_packed")
+
+
 def partition_index(index: Index, n_parts: int):
     """Range-partition by bucket: partition p owns an equal bucket range
     [p*B/n, (p+1)*B/n).  Entries are padded to the max partition size so
@@ -218,6 +230,54 @@ def partition_index(index: Index, n_parts: int):
         packed[p, :, :n] = packed_all[:, lo:hi]
         bstart[p] = starts[p * bl:(p + 1) * bl + 1] - starts[p * bl]
     return dict(p_bucket_start=bstart, p_entries_packed=packed)
+
+
+def repartition_index(index: Index, n_parts: int, failed: int, parts=None):
+    """Online drive-failure rebalancing: fold the failed drive's bucket
+    range onto the survivors by HALVING the partition count (N -> N/2; the
+    owner rule stays ``bucket >> log2(range)``, so ``partition_index``'s
+    power-of-two invariants survive a single-drive loss).
+
+    Merged partition p owns the union of old partitions (2p, 2p+1): entries
+    are the pairwise concatenation of the old planes (global bucket order
+    kept) and local bucket offsets rebase, so the result equals a fresh
+    ``partition_index(index, n_parts // 2)`` bit for bit.  ``parts`` may
+    pass the live N-partition planes to merge from (the survivors re-serve
+    their resident planes; the failed rank's range is re-read from the
+    host copy, here the same plane).
+
+    Returns ``(parts_half, remap)``: the N/2-partition planes and
+    ``remap[p]``, the surviving old drive serving merged partition p (old
+    drive 2p when it survived, else 2p+1, which already holds half the
+    merged range).
+    """
+    if n_parts < 2 or (n_parts & (n_parts - 1)):
+        raise ValueError(f"n_parts must be a power of two >= 2 to fold a "
+                         f"failed drive onto survivors; got {n_parts}")
+    if not 0 <= failed < n_parts:
+        raise ValueError(f"failed drive must be in [0, {n_parts}); "
+                         f"got {failed}")
+    if parts is None:
+        parts = partition_index(index, n_parts)
+    bs = np.asarray(parts["p_bucket_start"])
+    pk = np.asarray(parts["p_entries_packed"])
+    half = n_parts // 2
+    bl = bs.shape[1] - 1                      # buckets per OLD partition
+    sizes = bs[:, -1].astype(np.int64)        # true entries per partition
+    emax = max(int((sizes[0::2] + sizes[1::2]).max()), 1)
+    packed = np.zeros((half, 2, emax), np.int32)
+    bstart = np.zeros((half, 2 * bl + 1), np.int32)
+    remap = []
+    for p in range(half):
+        a, b = 2 * p, 2 * p + 1
+        na, nb = int(sizes[a]), int(sizes[b])
+        packed[p, :, :na] = pk[a, :, :na]
+        packed[p, :, na:na + nb] = pk[b, :, :nb]
+        bstart[p, :bl + 1] = bs[a]
+        bstart[p, bl:] = bs[b] + na
+        remap.append(a if a != failed else b)
+    return (dict(p_bucket_start=bstart, p_entries_packed=packed),
+            tuple(remap))
 
 
 # --------------------------------------------------------------------------- #

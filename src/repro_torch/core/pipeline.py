@@ -22,6 +22,10 @@ synchronisations.
 
 Pad rows (chunks shorter than the static chunk size) are masked out of
 every counter and of ``mapped`` via ``n_valid``.
+
+Over a mesh (``launch/mesh.py``, one process per rank) ``map_chunk_sharded``
+runs the same chunk program on each rank's share of the reads and returns
+the whole chunk's outputs on every rank.
 """
 from __future__ import annotations
 
@@ -36,7 +40,9 @@ import torch
 
 from repro_torch.core import cheap, chaining, driver, stages
 from repro_torch.core.config import MarsConfig
-from repro_torch.core.index import Index, TieredIndex, index_arrays, tier_index
+from repro_torch.core.index import (INDEX_AXIS, Index, TieredIndex,
+                                    index_arrays, partition_index,
+                                    tier_index)
 
 
 class MapOutput(NamedTuple):
@@ -247,10 +253,105 @@ def map_chunk(signals: torch.Tensor, index: Dict[str, torch.Tensor],
     if plan is None:
         plan = stages.resolve_plan(
             cfg, stages.KERNELS if use_kernels else stages.REFERENCE)
+    if stages.plan_index_kind(plan) == "partitioned":
+        raise ValueError(
+            f"plan {plan} uses a partitioned-index query backend; run it "
+            "through map_chunk_sharded with a mesh (partitions live on the "
+            f"'{INDEX_AXIS}' axis)")
     R = signals.shape[0]
     row_valid = torch.arange(R, device=signals.device) < (
         R if n_valid is None else int(n_valid))
     return _chunk_program(signals, index, cfg, plan, row_valid)
+
+
+# --------------------------------------------------------------------------- #
+# Sharded chunk mapping (one process per rank of a mesh)
+# --------------------------------------------------------------------------- #
+def _local_index(index: Dict, mesh, partitioned: bool) -> Dict:
+    """The index as this rank's chunk program consumes it: a partitioned
+    index with the mesh its query backend rotates over; a tiered view's
+    pre-pass planes (``tiered.PREPASS_KEYS``) cut to this rank's reads like
+    the signals; anything else as it is (replicated)."""
+    if partitioned:
+        return {**index, "mesh": mesh}
+    if "t_pre_keys" not in index:
+        return index
+    from repro_torch.core.tiered import PREPASS_KEYS
+    from repro_torch.distributed.sharding import local_rows
+    return {k: local_rows(v, mesh) if k in PREPASS_KEYS else v
+            for k, v in index.items()}
+
+
+def sharded_chunk_fn(cfg: MarsConfig, mesh, plan: stages.Plan):
+    """The sharded chunk program for a resolved plan: ``fn(signals (R, S),
+    index, n_valid) -> (t_start, score, mapped, n_events, counters)``.
+
+    Every rank passes the WHOLE chunk (numpy or a tensor) and the index as
+    it holds it (``Mapper`` builds both layouts), and gets the whole
+    chunk's outputs.  Rank r maps rows [r*R/n, (r+1)*R/n) (the shard order
+    is row-major over ``mesh.axis_names``, the rank order) with the
+    single-device chunk program, so the chaining gate, the compaction
+    capacity ceil(frac * R/n) and the width ladder are per rank; pad rows
+    are those past ``n_valid`` in the whole chunk.  The per-read outputs
+    come back by one all-gather, the int32 counters by one all-reduce."""
+    from repro_torch.distributed.sharding import gather_rows, local_rows
+    partitioned = stages.plan_index_kind(plan) == "partitioned"
+    if partitioned and INDEX_AXIS not in mesh.axis_names:
+        raise ValueError(f"plan {plan} partitions the index over the "
+                         f"'{INDEX_AXIS}' axis, absent from mesh "
+                         f"{mesh.axis_names}")
+
+    def fn(signals, index, n_valid):
+        R = signals.shape[0]
+        if R % mesh.size:
+            raise ValueError(f"chunk of {R} reads does not shard over "
+                             f"{mesh.size} devices; pad the chunk to a "
+                             "multiple")
+        r_loc = R // mesh.size
+        x = local_rows(signals, mesh)
+        row_valid = (mesh.rank * r_loc + torch.arange(
+            r_loc, device=x.device)) < int(n_valid)
+        out = _chunk_program(x, _local_index(index, mesh, partitioned),
+                             cfg, plan, row_valid)
+        names = list(out.counters)
+        summed = mesh.all_reduce_sum(torch.stack(
+            [out.counters[k] for k in names]))
+        # (R_loc, 4) int32 rows: t_start, score's bits, mapped, n_events
+        rows = gather_rows(torch.stack(
+            [out.t_start, out.score.view(torch.int32),
+             out.mapped.to(torch.int32), out.n_events], dim=1), mesh)
+        return (rows[:, 0].contiguous(),
+                rows[:, 1].contiguous().view(torch.float32),
+                rows[:, 2].bool(), rows[:, 3].contiguous(),
+                dict(zip(names, summed.unbind())))
+    return fn
+
+
+def map_chunk_sharded(signals, index: Dict, cfg: MarsConfig, mesh,
+                      use_kernels: bool = False,
+                      n_valid: Optional[int] = None,
+                      plan: Optional[stages.Plan] = None) -> MapOutput:
+    """Data-parallel ``map_chunk`` over a mesh: reads sharded over EVERY
+    mesh axis (the MARS "channel stripe"), counters summed over the mesh.
+    Every rank calls it with the same whole chunk ``signals`` (R, S) (numpy
+    or a tensor; R must divide over the ranks) and gets the whole
+    ``MapOutput`` on its device.  ``index`` is the whole table on every
+    rank (the default plans) or, for ``query:ring`` / ``query:a2a``, the
+    rank's resident partition (``sharding.local_partition``) — either way
+    the chunk program is the single-device one.
+
+    Per-read programs are independent and each seed's bucket lives in
+    exactly one partition, so outputs equal the single-device path's bit
+    for bit; int32 counter sums are associative, so the all-reduce is
+    exact."""
+    if plan is None:
+        plan = stages.resolve_plan(
+            cfg, stages.KERNELS if use_kernels else stages.REFERENCE)
+    nv = signals.shape[0] if n_valid is None else n_valid
+    t, s, m, ne, counters = sharded_chunk_fn(cfg, mesh, plan)(
+        signals, index, nv)
+    return MapOutput(t_start=t, score=s, mapped=m, n_events=ne,
+                     counters=counters)
 
 
 # --------------------------------------------------------------------------- #
@@ -263,8 +364,19 @@ class Mapper:
     ``device`` defaults to CUDA; without a card it raises unless the caller
     passes ``device="cpu"`` (the plain torch path — the kernel wrappers take
     their plain versions for CPU tensors).  ``backend`` names a registry
-    backend ("reference", "kernels" or "tiered"); ``use_kernels=True`` is
-    shorthand for "kernels".
+    backend ("reference", "kernels", "tiered", or the partitioned-index
+    query schedules "ring" / "a2a"); ``use_kernels=True`` is shorthand for
+    "kernels".
+
+    With a ``mesh`` (``launch/mesh.make_mesh``; every rank builds the same
+    Mapper from the same inputs) the chunks run through
+    ``map_chunk_sharded`` on the mesh's device, and every rank gets every
+    chunk's whole output, so ``map_signals``, ``serve`` and the realtime
+    ladder keep their single-device contracts.  Replicated plans hold the
+    whole index on every rank; "ring" / "a2a" REQUIRE a mesh with a
+    'model' axis and hold one ``partition_index`` partition a rank (the
+    partition of its 'model' coordinate); the tiered cache is replicated,
+    each rank paging the same tiles.
 
     backend="tiered" keeps the index OUT OF CORE: the packed planes are
     split into ``tiles`` host-resident bucket-range tiles and only the
@@ -290,8 +402,9 @@ class Mapper:
                  cache_policy: str = "lru", cache_seed: int = 0,
                  fault_plan=None, cache_retries: int = 3,
                  cache_backoff: float = 1.0, reuse_prepass: bool = True,
-                 cache_replicas: int = 0):
-        self.device = check_device(device)
+                 cache_replicas: int = 0, mesh=None):
+        self.mesh = mesh
+        self.device = check_device(device) if mesh is None else mesh.device
         self.index = index
         self.cfg = cfg or index.cfg
         self.backend = backend or (
@@ -316,6 +429,14 @@ class Mapper:
                 max_retries=cache_retries, backoff_base=cache_backoff,
                 reuse_prepass=reuse_prepass, replicas=cache_replicas)
             self.arrays = None
+        elif kind == "partitioned":
+            if mesh is None or INDEX_AXIS not in mesh.axis_names:
+                raise ValueError(
+                    f"backend {self.backend!r} partitions the index over "
+                    f"the '{INDEX_AXIS}' axis; pass a mesh with one")
+            from repro_torch.distributed.sharding import local_partition
+            self.arrays = local_partition(
+                partition_index(index, mesh.shape[INDEX_AXIS]), mesh)
         else:
             self.arrays = index_arrays(index, self.device)
 
@@ -354,14 +475,18 @@ class Mapper:
         """The (signals, n_valid) -> MapOutput program for driver.stream_map
         consumers that bring their own chunk source (e.g. the launcher's
         SignalReader)."""
-        arrays, cache, cfg, plan, device = (self.arrays, self.cache,
-                                            self.cfg, self.plan, self.device)
+        arrays, cache, cfg, plan, device, mesh = (
+            self.arrays, self.cache, self.cfg, self.plan, self.device,
+            self.mesh)
 
         def fn(sig, nv):
             # the tiered index: page in this chunk's tiles first (or take
             # the view a prefetch prepared)
             index = arrays if cache is None else cache.prepare(sig, cfg,
                                                                plan)
+            if mesh is not None:
+                return map_chunk_sharded(sig, index, cfg, mesh, n_valid=nv,
+                                         plan=plan)
             x = torch.from_numpy(np.ascontiguousarray(sig, np.float32))
             if device.type == "cuda":
                 # pinned + non_blocking: the upload does not wait for the

@@ -16,7 +16,7 @@ the serving driver's ladder (core/server.py) runs the same programs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -51,20 +51,24 @@ def stage_cfg(cfg: MarsConfig, length: int) -> MarsConfig:
 def map_realtime(signals: np.ndarray, index: Index, cfg: MarsConfig,
                  stages: Sequence[int] = (256, 512, 768, 1024),
                  min_score: float = 8.0, chunk: int = 64,
-                 use_kernels: bool = False, device="cuda") -> RealtimeResult:
+                 use_kernels: bool = False, device="cuda",
+                 backend: Optional[str] = None,
+                 mesh=None) -> RealtimeResult:
     """signals: (R, S) f32.  ``stages`` are prefix lengths (last == S).
 
     A read is resolved at the earliest stage where it maps with
     score >= min_score; unresolved reads fall through to the full-length
     decision (scored with cfg.min_chain_score as usual).
 
-    ``use_kernels`` / ``device`` select the chunk program as in ``Mapper``
-    (CUDA unless the caller asks for the CPU).
+    ``use_kernels`` / ``backend`` / ``device`` / ``mesh`` select the chunk
+    program as in ``Mapper`` (CUDA unless the caller asks for the CPU; with
+    a mesh, ``chunk`` must divide over its ranks).
     """
     R, S = signals.shape
     assert stages[-1] == S, (stages, S)
     # ONE index upload; the per-stage Mappers share it
-    base = Mapper(index, cfg, use_kernels=use_kernels, device=device)
+    base = Mapper(index, cfg, use_kernels=use_kernels, backend=backend,
+                  device=device, mesh=mesh)
 
     t_start = np.zeros(R, np.int64)
     score = np.zeros(R, np.float32)

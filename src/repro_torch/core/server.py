@@ -255,14 +255,17 @@ class ServeDriver:
     """Continuous-batching serving front-end over one chunk pipeline.
 
     ``mapper`` is any object exposing ``cfg`` and ``chunk_fn()`` — a
-    ``pipeline.Mapper`` (either backend plan, on the card or on the CPU)
-    or a lightweight stand-in.  With ``early_term=True`` it must
+    ``pipeline.Mapper`` (any registry backend, on the card or on the CPU,
+    optionally over a mesh: sharded and partitioned-index plans serve
+    identically, every rank driving the same trace) or a lightweight
+    stand-in.  With ``early_term=True`` it must
     also expose ``with_cfg`` (Mapper does) so the prefix-ladder
     specializations share the resident index.
 
     Parameters
     ----------
-    chunk:        static rows per device chunk.
+    chunk:        static rows per device chunk (with a mesh: must divide
+                  over its ranks, as in Mapper.map_signals).
     max_queue:    bound on outstanding reads (queued + in flight).
                   Admission beyond it is priority-aware (evict a
                   strictly-worse queued read, else reject) — the

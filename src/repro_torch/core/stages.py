@@ -14,7 +14,9 @@ kernel registers itself from its ``ops.py`` at import:
 * a ``query`` backend may instead be a whole query function over another
   index layout (``register_backend(..., query_fn=..., index_kind=...)``):
   the tiered index's ``query:tiered`` (core/tiered.py) routes each bucket
-  through its tile's device cache slot;
+  through its tile's device cache slot, and the partitioned index's
+  ``query:ring`` / ``query:a2a`` (core/distributed.py) query one
+  bucket-range partition a rank over a mesh;
 * the cheap stages also have ONE whole-phase kernel
   (``register_fused_cheap``, kernels/cheap_fused), which engages when the
   plan's detect and query resolved to its backend and its own ``supports``
@@ -64,13 +66,19 @@ _BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
     # out-of-core query over host-resident bucket-range tiles paged into a
     # device tile cache (core/tiered.py)
     "tiered": ("repro_torch.core.tiered",),
+    # the distributed query schedules over a bucket-range-partitioned index
+    # (a collective-permute ring / one all-to-all), each just another
+    # ``query`` backend of the same chunk program (core/distributed.py)
+    "ring": ("repro_torch.core.distributed",),
+    "a2a": ("repro_torch.core.distributed",),
 }
 _loaded_backend_modules = set()
 
 # The index layouts a query backend consumes: the whole packed table on the
-# device (``index.index_arrays``), or a ``tiered.HotTileCache`` view of the
-# host-resident tiles.
-INDEX_KINDS: Tuple[str, ...] = ("replicated", "tiered")
+# device (``index.index_arrays``), one bucket-range partition of
+# ``index.partition_index`` a 'model' rank of a mesh, or a
+# ``tiered.HotTileCache`` view of the host-resident tiles.
+INDEX_KINDS: Tuple[str, ...] = ("replicated", "partitioned", "tiered")
 
 # Uniform per-chunk counter schema (docs/COUNTERS.md of the reference
 # package): every map_chunk output carries exactly these counters.

@@ -227,6 +227,13 @@ class HotTileCache:
     ``device`` holds the slots (and runs the pre-pass): CUDA unless the
     caller asks for the CPU.  On a card the host tiles are copied once into
     pinned memory, and each page-in is an asynchronous copy from there.
+
+    The slots are per rank: under a mesh (``launch/mesh.py``) each rank's
+    ``Mapper`` builds its own cache on the rank's device, runs the pre-pass
+    over the whole chunk, and so takes the same paging decisions and
+    telemetry as the single-device cache; ``pipeline.map_chunk_sharded``
+    cuts the view's per-read pre-pass planes to the rank's reads, like the
+    signals.
     """
 
     def __init__(self, tiered: TieredIndex, n_slots: int, device="cuda",

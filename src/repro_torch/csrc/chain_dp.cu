@@ -1,5 +1,7 @@
 // Banded chaining DP over sorted anchors (minimap2-style, look-back band of
-// B = 32 predecessors held in a ring buffer).
+// B predecessors held in a ring buffer).  Two kernels: the shipped one for
+// the default B = 32 (chain_dp_kernel, one lane per band slot, below), and
+// one for any other band (chain_dp_band_kernel, after it).
 //
 // Replaces: src/repro/kernels/chain_dp/chain_dp.py::chain_dp_kernel
 // (the pl.pallas_call at :89, body _kernel at :36).
@@ -216,12 +218,143 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Any band B >= 1 (chain_band != 32).
+//
+// One warp per read; band slot s (the newest anchor j with j % B == s) lives
+// in lane s % 32, at register (or scratch entry) s / 32: SLOTS = ceil(B / 32)
+// slots a lane, the lanes past B masked off when B < 32.  Up to 2 slots a
+// lane the band stays in registers (B <= 64); a wider band lives in a
+// global scratch row of B int4 entries per read, each entry read and written
+// by the one lane that owns it, so no lane ever sees another's writes.
+// More slots would not stay in registers: ptxas puts a band of 4 or 8
+// slots a lane in a local-memory stack frame, the scratch row's memory
+// class.
+//
+// Step i is the reference's step as written: every lane forms the
+// candidates of its slots, keeps the best by (score, then smallest age rank
+// k = (s - i) mod B, 0 the oldest), and the warp reduces that pair: a
+// __reduce_max_sync of the order-preserving score image, a __reduce_min_sync
+// of the age ranks that reach it, and one shuffle of diag0 from the lane
+// owning the winning slot (s = (i + k) mod B).  So the tie rule is the
+// reference's, first (oldest) index on equal score, across slots and lanes.
+// The same candidate() (two __fmaf_rn) and __fadd_rn as the B = 32 kernel.
+// The wrapper passes B = min(chain_band, A): with B >= A every earlier
+// anchor of the read is in the band, as it is with any wider band, and the
+// extra slots are sentinels whose candidate is NEG.
+//
+// What bounds it: as the B = 32 kernel, the anchor-to-anchor chain; here
+// the whole step is on it (no look-ahead split), SLOTS candidates, two
+// REDUX and four shuffles a step.  A simple kernel first (PERF.md).
+template <int SLOTS>   // > 0: slots a lane in registers; 0: band in scratch
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+    chain_dp_band_kernel(const int* __restrict__ q, const int* __restrict__ t,
+                         const unsigned char* __restrict__ valid,
+                         float* __restrict__ f_out, int* __restrict__ d_out,
+                         int rows, int A, int B, Costs c,
+                         int4* __restrict__ scratch) {
+  constexpr int kRegs = SLOTS > 0 ? SLOTS : 1;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;               // the whole warp leaves together
+  const size_t off = static_cast<size_t>(row) * A;
+  float bf[kRegs];
+  int bd[kRegs], bt[kRegs], bq[kRegs];
+  int4* band = nullptr;
+  if constexpr (SLOTS > 0) {
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      bf[j] = kNeg;
+      bd[j] = 0;
+      bt[j] = kSent;
+      bq[j] = kSent;
+    }
+  } else {
+    band = scratch + static_cast<size_t>(row) * B;
+    for (int sl = lane; sl < B; sl += 32)
+      band[sl] = make_int4(__float_as_int(kNeg), 0, kSent, kSent);
+  }
+  for (int base = 0; base < A; base += 32) {
+    const int n = min(32, A - base);
+    int cur_t = 0, cur_q = 0, cur_v = 0;
+    if (lane < n) {
+      cur_t = __ldg(t + off + base + lane);
+      cur_q = __ldg(q + off + base + lane);
+      cur_v = __ldg(valid + off + base + lane);
+    }
+    float out_f = kNeg;
+    int out_d = 0;
+    for (int s = 0; s < n; ++s) {
+      const int i = base + s;
+      const int ti = __shfl_sync(kFull, cur_t, s);
+      const int qi = __shfl_sync(kFull, cur_q, s);
+      const int vi = __shfl_sync(kFull, cur_v, s);
+      const int r = i % B;               // anchor i's slot, the oldest's
+      // this lane's best slot: highest score image, then smallest age rank
+      int lk = INT_MIN, la = B, ld = 0;
+      auto consider = [&](float f, int d, int st, int sq, int sl) {
+        const int key = order_key(candidate(f, ti - st, qi - sq, c));
+        const int age = sl >= r ? sl - r : sl - r + B;
+        if (key > lk || (key == lk && age < la)) {
+          lk = key;
+          la = age;
+          ld = d;
+        }
+      };
+      if constexpr (SLOTS > 0) {
+#pragma unroll
+        for (int j = 0; j < SLOTS; ++j)
+          if (j * 32 + lane < B) consider(bf[j], bd[j], bt[j], bq[j],
+                                          j * 32 + lane);
+      } else {
+        for (int sl = lane; sl < B; sl += 32) {
+          const int4 e = band[sl];
+          consider(__int_as_float(e.x), e.y, e.z, e.w, sl);
+        }
+      }
+      const int kmax = __reduce_max_sync(kFull, lk);
+      const int kbest = static_cast<int>(__reduce_min_sync(
+          kFull, lk == kmax ? static_cast<unsigned>(la)
+                            : static_cast<unsigned>(B)));
+      const int sbest = kbest + r >= B ? kbest + r - B : kbest + r;
+      const int dbest = __shfl_sync(kFull, ld, sbest & 31);
+      const float best = from_key(kmax);
+      float fi = __fadd_rn(c.anchor_score, fmaxf(best, 0.0f));
+      if (!vi) fi = kNeg;
+      const int di = best > 0.0f ? dbest : ti - qi;
+      if (lane == (r & 31)) {
+        if constexpr (SLOTS > 0) {
+#pragma unroll
+          for (int j = 0; j < SLOTS; ++j) {
+            if (j == (r >> 5)) {
+              bf[j] = fi;
+              bd[j] = di;
+              bt[j] = ti;
+              bq[j] = qi;
+            }
+          }
+        } else {
+          band[r] = make_int4(__float_as_int(fi), di, ti, qi);
+        }
+      }
+      if (lane == s) {
+        out_f = fi;
+        out_d = di;
+      }
+    }
+    if (lane < n) {
+      f_out[off + base + lane] = out_f;
+      d_out[off + base + lane] = out_d;
+    }
+  }
+}
+
 }  // namespace
 
 // q, t: (rows, A) int32; valid: (rows, A) bool (one byte each); f_out
 // (rows, A) f32, d_out (rows, A) int32; all contiguous.  The band is fixed
-// at 32 (the wrapper rejects any other chain_band).  Launches on `stream`;
-// returns cudaGetLastError() of the launch.
+// at 32 (the wrapper launches chain_dp_band_rows for any other chain_band).
+// Launches on `stream`; returns cudaGetLastError() of the launch.
 extern "C" int chain_dp_rows(const int* q, const int* t,
                              const unsigned char* valid, float* f_out,
                              int* d_out, int rows, int A, int max_gap,
@@ -232,5 +365,35 @@ extern "C" int chain_dp_rows(const int* q, const int* t,
   chain_dp_kernel<<<blocks, kWarpsPerBlock * 32, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       q, t, valid, f_out, d_out, rows, A, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same DP at band B = min(chain_band, A) >= 1 (any chain_band but 32):
+// B <= 64 keeps the band in registers (1 or 2 slots a lane); a wider
+// band needs `scratch`, (rows, B) int4 (16 bytes an entry), else it may be
+// null.  Launches on `stream`; returns cudaGetLastError() of the launch
+// (cudaErrorInvalidValue, without a launch, for B < 1 or a missing scratch).
+extern "C" int chain_dp_band_rows(const int* q, const int* t,
+                                  const unsigned char* valid, float* f_out,
+                                  int* d_out, int rows, int A, int B,
+                                  int max_gap, float gap_cost,
+                                  float skip_cost, float anchor_score,
+                                  void* scratch, void* stream) {
+  const int slots = (B + 31) / 32;
+  if (B < 1 || (slots > 2 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const Costs c{max_gap, -gap_cost, -skip_cost, anchor_score};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int4* band = static_cast<int4*>(scratch);
+  if (slots == 1)
+    chain_dp_band_kernel<1><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+        q, t, valid, f_out, d_out, rows, A, B, c, band);
+  else if (slots == 2)
+    chain_dp_band_kernel<2><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+        q, t, valid, f_out, d_out, rows, A, B, c, band);
+  else
+    chain_dp_band_kernel<0><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+        q, t, valid, f_out, d_out, rows, A, B, c, band);
   return static_cast<int>(cudaGetLastError());
 }

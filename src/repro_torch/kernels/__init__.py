@@ -9,7 +9,9 @@ Each kernel package has:
 The CUDA sources live in ``repro_torch/csrc/`` and are compiled at first
 use by ``kernels/build.py`` (nvcc -> one shared library with a plain C
 interface, loaded with ctypes).  ``LAUNCHES`` counts every kernel launch
-by name; ``reset_launches`` zeroes it.
+by name (and ``sort_rows_library`` the sort wrapper's ``torch.sort`` route
+for rows past one kernel block, which is no kernel of this package);
+``reset_launches`` zeroes it.
 """
 from typing import Dict, Sequence
 
@@ -18,7 +20,7 @@ import torch
 LAUNCHES: Dict[str, int] = {"cheap_fused": 0, "bitonic_sort": 0,
                             "chain_dp": 0, "event_detect": 0,
                             "pluto_lookup": 0, "pluto_lookup_rows": 0,
-                            "segment_sum": 0}
+                            "segment_sum": 0, "sort_rows_library": 0}
 
 
 def reset_launches() -> None:

@@ -4,8 +4,11 @@ stage backend.
 Rows are padded with INT32_MAX to ``max(128, next_pow2(L))`` lanes, as the
 reference package's ``sort_batch`` pads them (the kernel pads in registers,
 8 keys a thread), and sorted by one CTA per row (several short rows share
-one).  A padded row longer than ``MAX_BLOCK`` (8192) raises: one row must
-fit one CTA's 1024 threads, and on the mapping path L <= 4096.
+one).  A row that pads past ``MAX_BLOCK`` (8192) does not fit one CTA's
+1024 threads; ``sort_batch`` sorts such rows with ``jnp.sort``, its own
+route past one kernel block, and so does this wrapper with ``torch.sort`` on
+the keys' device, counted as ``sort_rows_library`` (on the mapping path
+L <= 4096, so only an oversized config reaches it).
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ def sort_rows(keys: torch.Tensor) -> torch.Tensor:
     K.check_tensor("bitonic_sort", keys, torch.int32, (None, None))
     L = keys.shape[1]
     if max(128, _next_pow2(L)) > MAX_BLOCK:
-        raise ValueError(f"bitonic_sort: rows of {L} keys pad past "
-                         f"{MAX_BLOCK}, more than one CTA's row block")
+        # the reference wrapper's documented route past one block
+        K.LAUNCHES["sort_rows_library"] += 1
+        return torch.sort(keys, dim=-1).values
     if keys.device.type == "cpu":
         return sort_rows_ref(keys)
     return _sort_rows_kernel(keys)

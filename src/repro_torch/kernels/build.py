@@ -123,6 +123,9 @@ def lib() -> ctypes.CDLL:
         handle.bitonic_sort_rows.restype = I
         handle.chain_dp_rows.argtypes = [P, P, P, P, P, I, I, I, F, F, F, P]
         handle.chain_dp_rows.restype = I
+        handle.chain_dp_band_rows.argtypes = [P, P, P, P, P, I, I, I, I, F,
+                                              F, F, P, P]
+        handle.chain_dp_band_rows.restype = I
         handle.event_detect_rows.argtypes = [P, P, P] + [I] * 8 + [P]
         handle.event_detect_rows.restype = I
         handle.pluto_lookup.argtypes = [P, P, P, I64, I, P]

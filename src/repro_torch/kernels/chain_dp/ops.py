@@ -1,6 +1,8 @@
-"""Wrapper of the banded chaining-DP kernel (csrc/chain_dp.cu) + its stage
-backend.  The kernel runs one warp per read with one lane per band slot,
-so it takes ``chain_band == 32`` (the default) only and raises otherwise.
+"""Wrapper of the banded chaining-DP kernels (csrc/chain_dp.cu) + their
+stage backend.  Both run one warp per read: the default ``chain_band == 32``
+launches the shipped kernel (one lane per band slot), any other band the
+band kernel at B = min(chain_band, A) (ceil(B / 32) slots a lane, in
+registers up to B = 64 and in a scratch row of 16 bytes a slot beyond).
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from repro_torch.core import stages
 from repro_torch.core.config import MarsConfig
 from repro_torch.kernels.chain_dp.ref import chain_dp_ref
 
-BAND = 32
+BAND = 32             # the shipped kernel's band: one lane per slot
+REGISTER_BAND = 64    # the band kernel keeps up to 2 slots a lane in registers
 
 
 def chain_dp(q: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
@@ -24,10 +27,9 @@ def chain_dp(q: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
     K.check_tensor("chain_dp valid", valid, torch.bool, q.shape)
     if q.device.type == "cpu":
         return chain_dp_ref(q, t, valid, cfg)
-    if cfg.chain_band != BAND:
+    if cfg.chain_band < 1:
         raise ValueError(f"chain_dp kernel: chain_band={cfg.chain_band}; the "
-                         f"kernel holds one band slot per lane of a warp "
-                         f"and takes chain_band={BAND} only")
+                         "band holds at least one predecessor")
     return _chain_dp_kernel(q, t, valid, cfg)
 
 
@@ -40,10 +42,23 @@ def _chain_dp_kernel(q, t, valid, cfg: MarsConfig):
     if n and A:
         from repro_torch.kernels import build
         f32 = lambda x: float(np.float32(x))      # noqa: E731
-        err = build.lib().chain_dp_rows(
-            q.data_ptr(), t.data_ptr(), valid.data_ptr(), f.data_ptr(),
-            d.data_ptr(), n, A, cfg.max_gap, f32(cfg.gap_cost),
-            f32(cfg.skip_cost), f32(cfg.anchor_score), K.stream_handle(q))
+        costs = (cfg.max_gap, f32(cfg.gap_cost), f32(cfg.skip_cost),
+                 f32(cfg.anchor_score))
+        ptrs = (q.data_ptr(), t.data_ptr(), valid.data_ptr(), f.data_ptr(),
+                d.data_ptr(), n, A)
+        if cfg.chain_band == BAND:
+            err = build.lib().chain_dp_rows(*ptrs, *costs,
+                                            K.stream_handle(q))
+        else:
+            # every earlier anchor of a read is in a band of A or wider
+            B = min(cfg.chain_band, A)
+            scratch = (torch.empty((n, B, 4), dtype=torch.int32,
+                                   device=q.device)
+                       if B > REGISTER_BAND else None)
+            err = build.lib().chain_dp_band_rows(
+                *ptrs, B, *costs,
+                None if scratch is None else scratch.data_ptr(),
+                K.stream_handle(q))
         build.check(err, "chain_dp")
         K.LAUNCHES["chain_dp"] += 1
     return f, d

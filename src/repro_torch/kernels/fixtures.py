@@ -64,3 +64,33 @@ def tie_anchors(rng: np.random.Generator, rows: int, A: int,
     t = np.take_along_axis(t, order, -1).astype(np.int32)
     q = np.take_along_axis(q, order, -1).astype(np.int32)
     return q, t, rng.random((rows, A)) < p_valid
+
+
+def lane_tie_anchors(rows: int, A: int):
+    """(q, t, valid) of shape (rows, A) where the two predecessors tying
+    for an anchor's best candidate lie 32 anchors apart: blocks of
+    P1 = (T-7, Q-5), 31 invalid fillers at T-6, P2 = (T-5, Q-7) and the
+    anchor (T, Q).  P1 and P2 score the same and give the anchor one gap
+    and one skip each, with diagonals 4 apart; the older, P1, must win.
+    At a band of 32 < B, slots 32 apart share a lane of the band kernel,
+    so the tie is decided inside one lane."""
+    spread = 32
+    blk = spread + 2
+    t = np.empty((rows, A), np.int32)
+    q = np.empty((rows, A), np.int32)
+    v = np.ones((rows, A), bool)
+    for r in range(rows):
+        for i in range(A):
+            b, k = divmod(i, blk)
+            T, Q = 1000 + 400 * b, 200 + 3 * r
+            if k == 0:
+                t[r, i], q[r, i] = T - 7, Q - 5
+            elif k < spread:
+                t[r, i], q[r, i], v[r, i] = T - 6, 10 * k, False
+            elif k == spread:
+                t[r, i], q[r, i] = T - 5, Q - 7
+            else:
+                t[r, i], q[r, i] = T, Q
+    order = np.lexsort((q, t), axis=-1)
+    return (np.take_along_axis(q, order, -1), np.take_along_axis(t, order, -1),
+            np.take_along_axis(v, order, -1))

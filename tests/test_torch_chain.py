@@ -56,8 +56,15 @@ def test_sort_wrapper_equals_jax_sort_batch(L):
 
 
 def test_sort_wrapper_rejects_long_rows_and_bad_dtype():
-    with pytest.raises(ValueError, match="8192"):
-        sort_ops.sort_rows(torch.zeros((1, 8193), dtype=torch.int32))
+    """Rows past one kernel block no longer raise: they take the counted
+    ``torch.sort`` route, as ``sort_batch`` takes ``jnp.sort``.  A wrong
+    dtype still raises."""
+    from repro_torch import kernels as K
+    K.reset_launches()
+    k = _rows(np.random.default_rng(8193), 2, 8193)
+    _eq(sort_ops.sort_rows(torch.from_numpy(k)),
+        jsort_ops.sort_batch(jnp.asarray(k)))
+    assert K.LAUNCHES["sort_rows_library"] == 1
     with pytest.raises(TypeError):
         sort_ops.sort_rows(torch.zeros((1, 8), dtype=torch.int64))
 

@@ -187,12 +187,37 @@ def test_chain_dp_kernel_equals_plain_on_tie_rows(d5, A):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_chain_dp_kernel_rejects_other_bands(d5):
+@pytest.mark.parametrize("case", ["D5 rows", "ties", "lane ties"])
+@pytest.mark.parametrize("B", [1, 16, 33, 64, 128, 300])
+def test_chain_dp_band_kernel_equals_plain(d5, B, case):
+    """Any chain_band but 32 launches the band kernel: D5's anchors at full
+    width, tie-heavy anchors, and anchors whose tying predecessors lie 32
+    apart (slots of one lane once B > 32); B = 128 and 300 keep the band
+    in the scratch row."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core import chaining
     from repro_torch.kernels.chain_dp import ops
-    dev = d5[1]["bucket_start"].device
-    q = torch.zeros((1, 8), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="chain_band"):
-        ops.chain_dp(q, q, q.bool(), d5[0].replace(chain_band=16))
+    from repro_torch.kernels.chain_dp.ref import chain_dp_ref
+    from repro_torch.kernels.fixtures import lane_tie_anchors, tie_anchors
+    cfg = d5[0].replace(chain_band=B)
+    dev = d5[2].device
+    A = cfg.max_anchors
+    if case == "D5 rows":
+        rows = torch.sort(_rows(d5, survivors=False), dim=1).values[:64, :A]
+        sq, st, sv = (x.contiguous()
+                      for x in chaining.decode_anchor_keys(rows))
+    else:
+        q, t, v = (tie_anchors(np.random.default_rng(B), 64, A,
+                               max_gap=cfg.max_gap) if case == "ties"
+                   else lane_tie_anchors(64, A))
+        sq, st, sv = (torch.from_numpy(x).to(dev) for x in (q, t, v))
+    n0 = K.LAUNCHES["chain_dp"]
+    got = ops.chain_dp(sq, st, sv, cfg)
+    want = chain_dp_ref(sq, st, sv, cfg)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["chain_dp"] == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _query_indices(d5):
@@ -790,3 +815,76 @@ def test_tiered_pages_from_pinned_memory_twice_in_a_row(d1_serving):
             np.testing.assert_array_equal(
                 v["t_entries_packed"][:, i].cpu().numpy(),
                 ti.tile_entries_packed[t])
+
+
+# --------------------------------------------------------------------------- #
+# Rows past one sort block, and the sharded mapper on the card
+# --------------------------------------------------------------------------- #
+def test_sort_rows_past_one_block_take_the_counted_library_route():
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.kernels.bitonic_sort import ops
+    from repro_torch.kernels.bitonic_sort.ref import sort_rows_ref
+    from repro_torch.kernels.fixtures import edge_rows
+    dev = _card()
+    keys = torch.from_numpy(edge_rows(np.random.default_rng(3), 33,
+                                      16384)).to(dev)
+    K.reset_launches()
+    got = ops.sort_rows(keys)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sort_rows_library"] == 1
+    assert K.LAUNCHES["bitonic_sort"] == 0
+    assert torch.equal(got, sort_rows_ref(keys))
+
+
+def _sharded_kernels_rank(index, cfg, signals):
+    """A rank of a (1, 2) gloo mesh on the card: the kernels plan over
+    ``signals`` in chunks of 64, with its launches."""
+    from repro_torch import kernels as K
+    from repro_torch.core import Mapper
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 2), ("data", "model"), backend="gloo")
+    fn = Mapper(index, cfg, use_kernels=True, mesh=mesh).chunk_fn()
+    K.reset_launches()
+    outs = []
+    for i in range(0, len(signals), 64):
+        o = fn(signals[i:i + 64], 64)
+        outs.append(({f: getattr(o, f).cpu().numpy()
+                      for f in ("t_start", "score", "mapped", "n_events")},
+                     {k: int(v) for k, v in o.counters.items()}))
+    return dict(outs=outs, launches=dict(K.LAUNCHES),
+                device=str(mesh.device), backend=mesh.backend,
+                staged=mesh.stats["staged_bytes"])
+
+
+def test_two_gloo_ranks_on_the_card_equal_the_single_device(d1_serving):
+    """Two ranks sharing the card through gloo (host-staged collectives):
+    every chunk of the kernels plan equals the single-device kernels plan,
+    and each rank launched the fused path's kernels."""
+    from repro_torch.core import Mapper
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_ranks
+    dev, cfg, reads, index = d1_serving
+    cfg = cfg.with_mode("ms_fixed")
+    build.build()                      # the ranks only load the library
+    sig = reads.signals[:96]
+    fn = Mapper(index["ms_fixed"], cfg, use_kernels=True,
+                device=dev).chunk_fn()
+    want = []
+    for i in range(0, len(sig), 64):
+        o = fn(sig[i:i + 64], 64)
+        want.append(({f: getattr(o, f).cpu().numpy()
+                       for f in ("t_start", "score", "mapped",
+                                 "n_events")},
+                      {k: int(v) for k, v in o.counters.items()}))
+    ranks = run_ranks(_sharded_kernels_rank, 2, index["ms_fixed"], cfg, sig,
+                      timeout=300)
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert r["staged"] > 0
+        assert all(r["launches"][k] > 0
+                   for k in ("cheap_fused", "bitonic_sort", "chain_dp"))
+        for (g, gc), (w, wc) in zip(r["outs"], want):
+            assert gc == wc
+            for f in w:
+                np.testing.assert_array_equal(g[f], w[f])
