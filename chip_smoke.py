@@ -115,7 +115,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                calls, staging, blocked on its device and dispatching,
                beside the device's busy time).  On a host with 2 or more
                cards the same runs follow on one NCCL rank a card;
-9. summary   — one JSON line of per-kernel results, then the last line
+9. paper     — the paper's evaluation (``repro_torch.benchmarks``):
+               Table 3 maps all 15 (dataset, mode) records, D1-D5 in
+               rh2, ms_float and ms_fixed at chunk 32 (datasets.build),
+               under the reference plan into a fresh record cache, then
+               the kernels plan maps them again (launch counts zeroed just
+               before each run and read just after: ms_fixed must launch
+               the fused path, the float modes the float path, the
+               reference plan nothing); every record of both plans must
+               equal the JAX package's (``jax_records.json``: counters,
+               P/R/F1, index and raw bytes).  Every table and figure
+               module (Figs. 11-13 under both cost models) then runs from
+               those records and each ``derived`` field must equal the
+               JAX package's; the serving calibration through the kernels
+               plan must give the host CPU's rows; ``bench_sim.check``
+               must pass on the committed ``BENCH_sim.json`` (those rows
+               are virtual-clock numbers that no mapped output changes, so
+               the calibration mapper's own reads are held too, card
+               against host); D1-D5 in each mode (chunks of 32) and the
+               filter ablation's five variants (400,000 bases, 96 reads):
+               every read under the kernels plan must equal the reference
+               plan on the card.  ``[paper-summary]``: each record's F1
+               and peak device memory (with what earlier phases still held
+               when the phase began), the kernels plan's reads/s a record
+               (the median pass of a 2 s window, with the fastest and
+               slowest), the Table 3 lines as the card ran them, the
+               phase's seconds;
+10. summary  — one JSON line of per-kernel results, then the last line
                ``{"ok": true, "device": {...}}``.  Every log line also goes
                to ``chiprun_out/chip_smoke.log``.
 
@@ -2216,6 +2242,260 @@ def phase_sharded(data, dev):
     return out
 
 
+# ---- the paper's evaluation ------------------------------------------------
+PAPER_MODES = ("rh2", "ms_float", "ms_fixed")
+PAPER_KEYS = ("counters", "accuracy", "index_bytes", "bench_bytes_raw",
+              "n_reads")
+SIM_FIGURES = ("fig11", "fig12", "fig13")
+CALIBRATE_ARGS = dict(chunk=8, load_fracs=(0.3, 0.5, 0.7), n_reads=96)
+
+
+def paper_path(cfg):
+    """The kernels a config's kernels plan launches: the fused path where
+    ``cheap_fused`` admits it, else the per-stage float path."""
+    from repro_torch.core import stages
+    plan = stages.resolve_plan(cfg, stages.KERNELS)
+    return FUSED_PATH if stages.fused_cheap_backend(plan, cfg) else FLOAT_PATH
+
+
+def equal_record(label, rec, want) -> None:
+    for k in PAPER_KEYS:
+        if rec[k] != want[k]:
+            raise AssertionError(f"{label}: {k} differs from the JAX "
+                                 f"package's record: {rec[k]} vs {want[k]}")
+
+
+def equal_outputs(label, got, want) -> None:
+    """Two host ``MapOutput``s equal bit for bit, field and counter."""
+    for f in ("t_start", "score", "mapped", "n_events"):
+        g, w = getattr(got, f), getattr(want, f)
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                g.tobytes() != w.tobytes():
+            raise AssertionError(f"{label}: {f} differs between the "
+                                 "kernels and the reference plan")
+    if got.counters != want.counters:
+        raise AssertionError(f"{label}: counters differ: {got.counters} "
+                             f"vs {want.counters}")
+
+
+PAPER_WINDOW_S = 2.0   # the kernels plan's timed window a record
+PAPER_MIN_PASSES = 5
+
+
+def paper_reads(dev):
+    """Every (dataset, mode) record's reads (D2-D4 new to the card): mapped
+    in chunks of 32, every read of the kernels plan equals the reference
+    plan's on the card.  Then the kernels plan maps the record's reads
+    again and again for ``PAPER_WINDOW_S`` seconds (at least
+    ``PAPER_MIN_PASSES`` passes, each ended by a device sync): reads/s of
+    the median pass with the fastest and slowest, on the host clock."""
+    import torch
+    from repro_torch.core import Mapper, build_index
+    from repro_torch.signal import datasets
+    rates = {}
+    for ds, spec in datasets.DATASETS.items():
+        for mode in PAPER_MODES:
+            cfg = datasets.config_for(spec).with_mode(mode)
+            ref, reads = datasets.build(spec, cfg)
+            index = build_index(ref.events_concat, ref.n_events, cfg)
+            kern, plain = (Mapper(index, cfg, use_kernels=k, device=dev)
+                           for k in (True, False))
+            equal_outputs(f"paper {ds} {mode}",
+                          kern.map_signals(reads.signals, chunk=32),
+                          plain.map_signals(reads.signals, chunk=32))
+            passes = []
+            t_end = time.perf_counter() + PAPER_WINDOW_S
+            while len(passes) < PAPER_MIN_PASSES or \
+                    time.perf_counter() < t_end:
+                t0 = time.perf_counter()
+                kern.map_signals(reads.signals, chunk=32)
+                torch.cuda.synchronize()
+                passes.append(time.perf_counter() - t0)
+            passes.sort()
+            n = len(reads.signals)
+            rates[f"{ds} {mode}"] = dict(
+                n_reads=n, passes=len(passes),
+                reads_per_s=n / passes[len(passes) // 2],
+                fastest_reads_per_s=n / passes[0],
+                slowest_reads_per_s=n / passes[-1])
+    log("[paper] D1-D5, each mode, chunks of 32: every read's outputs and "
+        "the counters of the kernels plan equal the reference plan's")
+    log("[paper] kernels plan reads/s (median of a "
+        f"{PAPER_WINDOW_S:.0f} s window, slowest-fastest pass): " + "; ".join(
+            f"{k} {v['reads_per_s']:.1f} ({v['slowest_reads_per_s']:.1f}-"
+            f"{v['fastest_reads_per_s']:.1f}, {v['passes']} passes)"
+            for k, v in rates.items()))
+    return rates
+
+
+def phase_paper(dev):
+    """The paper's evaluation (``repro_torch.benchmarks``) on the card: Table
+    3 maps all 15 (dataset, mode) records under the reference plan into a
+    fresh record cache, then the kernels plan maps them again (launch
+    counts zeroed just before each run, read just after); every record of
+    both plans must equal the JAX package's (``jax_records.json``).  Every
+    table and figure module (Figs. 11-13 under both cost models) then runs
+    from those records and each ``derived`` field must equal the JAX
+    package's; the serving calibration through the kernels plan must give
+    the host CPU's rows (virtual-clock numbers that do not depend on the
+    mapped outputs, so the calibration mapper's reads are held against the
+    host's as well); ``bench_sim.check`` must pass on the committed
+    ``BENCH_sim.json``.  Every record's reads (D2-D4 new to the card) and
+    the filter ablation's five variants: every read mapped under the
+    kernels plan must equal the reference plan's; the kernels plan's
+    reads/s come from a timed window of repeated passes."""
+    import shutil
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import (bench_sim, calibrate_serving, common,
+                                        run as paper_run)
+    from repro_torch.core import MarsConfig
+    from repro_torch.examples import filter_ablation
+    from repro_torch.signal import datasets
+    golden = json.loads((pathlib.Path(common.__file__).parent
+                         / "jax_records.json").read_text())
+    cache = ROOT / "build" / "paper_records"
+    shutil.rmtree(cache, ignore_errors=True)
+    common.CACHE, common._CALIB_CACHE = cache, {}
+    keys = [(ds, m) for ds in datasets.DATASETS for m in PAPER_MODES]
+    out = dict(records={}, launches={})
+
+    # the reference plan, as Table 3 runs it (emit follows each record)
+    table3, peaks = [], []
+
+    def emit(line):
+        table3.append(line)
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    # what earlier phases still hold: every peak below includes it
+    out["allocated_before"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.time()
+    paper_run.MODULES["table3"].run(emit, device=dev)
+    ref_s = time.time() - t0
+    check_launches("paper reference plan", K.LAUNCHES, ())
+    for (ds, mode), peak in zip(keys, peaks):
+        rec = common.pipeline_run(ds, mode, device=dev)
+        equal_record(f"paper {ds} {mode} reference plan", rec,
+                     golden["records"][f"{ds}/{mode}"])
+        out["records"][f"{ds} {mode} reference"] = dict(
+            f1=rec["accuracy"]["f1"], max_memory_allocated=peak,
+            index_bytes=rec["index_bytes"])
+    log(f"[paper] reference plan: 15 records equal the JAX package's "
+        f"({ref_s:.1f} s)")
+
+    # the kernels plan: the path's kernels on every record
+    t0 = time.time()
+    for ds, mode in keys:
+        cfg = datasets.config_for(datasets.DATASETS[ds]).with_mode(mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        rec = common.pipeline_run(ds, mode, backend="kernels", device=dev)
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(f"paper {ds} {mode} kernels plan", launches,
+                       paper_path(cfg))
+        equal_record(f"paper {ds} {mode} kernels plan", rec,
+                     golden["records"][f"{ds}/{mode}"])
+        out["launches"][f"paper {ds} {mode}"] = launches
+        out["records"][f"{ds} {mode} kernels"] = dict(
+            f1=rec["accuracy"]["f1"], max_memory_allocated=peak,
+            index_bytes=rec["index_bytes"], launches=launches)
+    K.reset_launches()
+    kern_s = time.time() - t0
+    log(f"[paper] kernels plan: 15 records equal the JAX package's, each "
+        f"launching its path's kernels ({kern_s:.1f} s)")
+    t0 = time.time()
+    out["throughput"] = paper_reads(dev)
+    reads_s = time.time() - t0
+
+    # every table and figure from those records
+    lines = {"analytic": [], "sim": []}
+    for key, mod in paper_run.MODULES.items():
+        mod.run(lines["analytic"].append, device=dev)
+    for key in SIM_FIGURES:
+        paper_run.MODULES[key].run(lines["sim"].append, model="sim",
+                                   device=dev)
+    for model, got in lines.items():
+        derived = dict((ln.split(",", 2)[0], ln.split(",", 2)[2])
+                       for ln in got)
+        if derived != golden["derived"][model]:
+            bad = sorted(k for k in set(derived) | set(golden["derived"][
+                model]) if derived.get(k) != golden["derived"][model].get(k))
+            raise AssertionError(f"paper: {model} CSV derived fields differ "
+                                 f"from the JAX package's: {bad}")
+    out["csv"] = lines
+    log(f"[paper] {len(lines['analytic'])} CSV lines (analytic) and "
+        f"{len(lines['sim'])} (sim): every derived field equals the JAX "
+        "package's")
+
+    # the serving calibration: the card's kernels plan against the host.
+    # Its rows are virtual-clock numbers that no mapped output changes, so
+    # the kernels are held on the calibration's reads themselves
+    t0 = time.time()
+    card_m = calibrate_serving.default_mapper(device=dev, use_kernels=True)
+    host_m = calibrate_serving.default_mapper(device="cpu", use_kernels=True)
+    sig = calibrate_serving.mapper_signals(card_m, CALIBRATE_ARGS["n_reads"],
+                                           1)
+    K.reset_launches()
+    mapped = card_m.map_signals(sig, chunk=CALIBRATE_ARGS["chunk"])
+    check_launches("paper calibration mapper", K.LAUNCHES,
+                   paper_path(card_m.cfg))
+    K.reset_launches()
+    equal_outputs("paper calibration mapper", mapped,
+                  host_m.map_signals(sig, chunk=CALIBRATE_ARGS["chunk"]))
+    rows = calibrate_serving.calibrate(card_m, **CALIBRATE_ARGS)
+    host = calibrate_serving.calibrate(host_m, **CALIBRATE_ARGS)
+    if rows != host:
+        raise AssertionError(f"paper: calibration rows differ from the "
+                             f"host's: {rows} vs {host}")
+    out["calibrate"] = rows
+    log(f"[paper] calibration mapper: every read on the card equals the "
+        f"host's; rows (virtual clock) equal the host's: p50 ratio "
+        f"{[round(r['p50_ratio'], 4) for r in rows]} at loads "
+        f"{CALIBRATE_ARGS['load_fracs']} ({time.time() - t0:.1f} s)")
+
+    if bench_sim.check(bench_sim.BASELINE) != 0:
+        raise AssertionError("paper: bench_sim.check failed on the "
+                             "committed BENCH_sim.json")
+    log("[paper] bench_sim.check: 0 on the committed BENCH_sim.json")
+
+    # the filter ablation at the example's size, both plans on the card
+    t0 = time.time()
+    ablation = {}
+    ref, reads = filter_ablation.inputs()
+    for name, kw in filter_ablation.VARIANTS.items():
+        K.reset_launches()
+        mapped, got = filter_ablation.map_variant(name, ref, reads,
+                                                  "kernels", dev)
+        launches = dict(K.LAUNCHES)
+        check_launches(f"paper ablation {name}", launches,
+                       paper_path(MarsConfig().replace(**kw)))
+        K.reset_launches()
+        mapped_ref, want = filter_ablation.map_variant(name, ref, reads,
+                                                       "reference", dev)
+        check_launches(f"paper ablation {name} reference", K.LAUNCHES, ())
+        equal_outputs(f"paper ablation {name}", mapped, mapped_ref)
+        if got != want:
+            raise AssertionError(f"paper ablation {name}: kernels plan "
+                                 f"{got} vs reference plan {want}")
+        out["launches"][f"paper ablation {name}"] = launches
+        ablation[name] = got
+        log(f"[paper] ablation {name}: P={got['precision']:.3f} "
+            f"R={got['recall']:.3f} F1={got['f1']:.3f} anchors "
+            f"{got['n_anchors_postvote']} dp_pairs {got['n_dp_pairs']}; "
+            f"every read of the kernels plan equals the reference plan")
+    K.reset_launches()
+    out["ablation"] = ablation
+    out["seconds"] = dict(reference=ref_s, kernels=kern_s, reads=reads_s,
+                          ablation=time.time() - t0)
+    out["table3"] = table3
+    return out
+
+
 def main() -> int:
     try:
         return run()
@@ -2289,6 +2569,7 @@ def run() -> int:
     launcher = timed("launcher", phase_launcher)
     serve = timed("serve", phase_serve, data, dev)
     sharded = timed("sharded", phase_sharded, data, dev)
+    paper = timed("paper", phase_paper, dev)
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)
@@ -2300,7 +2581,8 @@ def run() -> int:
             **{f"serve {k}": v["launches"]
                for k, v in serve["runs"].items()},
             **{f"sharded kernels rank {r}": v
-               for r, v in enumerate(sharded["rank_launches"])}}
+               for r, v in enumerate(sharded["rank_launches"])},
+            **paper["launches"]}
     sources = {
         "cheap_fused": ("src/repro_torch/csrc/cheap_fused.cu",
                         "src/repro/kernels/cheap_fused/cheap_fused.py:367",
@@ -2350,7 +2632,7 @@ def run() -> int:
              launch_floor_ms=floor, map=maps,
              float=floats, perstage=perstage, tiered=tiered_,
              launcher=launcher,
-             routes=routes, serve=serve, sharded=sharded,
+             routes=routes, serve=serve, sharded=sharded, paper=paper,
              phase_seconds=seconds,
              seconds=time.time() - t_all),
         indent=1,
@@ -2378,6 +2660,11 @@ def run() -> int:
             "staging_ms_per_chunk", "peak_bytes_by_rank")}
             for k, v in sharded[b]["runs"].items()}
             for b in ("gloo", "nccl") if b in sharded})))
+    log("[paper-summary] " + json.dumps(dict(
+        card=smi, records=paper["records"],
+        kernels_reads_per_s=paper["throughput"], table3=paper["table3"],
+        allocated_before=paper["allocated_before"],
+        seconds=seconds["paper"])))
     log(f"[seconds] {time.time() - t_all:.1f}")
     log(smi)
     print(json.dumps({"kernels": summary}))

@@ -2,7 +2,9 @@
 
 The paper evaluates five real datasets (SARS-CoV-2 .. human HG001).  Our
 reproduction generates synthetic equivalents: the genome LENGTH is scaled,
-while `paper_*` fields keep the original magnitudes.
+while `paper_*` fields keep the original magnitudes so the analytic
+hardware model can extrapolate measured per-read workload counts to paper
+scale (workload.Workload.scale).
 """
 from __future__ import annotations
 
@@ -25,6 +27,23 @@ class DatasetSpec:
     bench_reads: int           # reads to simulate for benchmarks
     large: bool                # 'large genome' filter thresholds (Section 5.1)
     seed: int = 0
+
+    @property
+    def scale_factor(self) -> float:
+        """Deprecated read-count factor; prefer bytes_scale_factor."""
+        return self.paper_reads / self.bench_reads
+
+    def bytes_scale_factor(self, bench_bytes_raw: int) -> float:
+        """paper raw bytes / bench raw bytes — the extrapolation factor for
+        the analytic HW model (workload counts scale with signal volume)."""
+        return float(self.paper_bytes) / float(bench_bytes_raw)
+
+    @property
+    def genome_scale_factor(self) -> float:
+        """paper genome size / scaled genome size — collision-driven counts
+        (spurious seed hits in the unfiltered baseline) grow with genome
+        size; used to extrapolate the uncapped hit counter."""
+        return self.paper_genome_len / self.genome_len
 
 
 DATASETS: Dict[str, DatasetSpec] = {
@@ -50,3 +69,11 @@ def config_for(spec: DatasetSpec, base: MarsConfig = MarsConfig()) -> MarsConfig
         return base.replace(thresh_freq=24, thresh_voting=2)
     return base.replace(thresh_freq=12, thresh_voting=4)
 
+
+def build(spec: DatasetSpec, cfg: MarsConfig, signal_len: int = 1024):
+    """The dataset's synthetic reference and its ``bench_reads`` reads."""
+    ref = simulate.make_reference(spec.genome_len, seed=spec.seed)
+    reads = simulate.sample_reads(ref, spec.bench_reads,
+                                  signal_len=signal_len,
+                                  seed=spec.seed + 1, junk_frac=0.08)
+    return ref, reads

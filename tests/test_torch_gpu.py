@@ -888,3 +888,55 @@ def test_two_gloo_ranks_on_the_card_equal_the_single_device(d1_serving):
             assert gc == wc
             for f in w:
                 np.testing.assert_array_equal(g[f], w[f])
+
+
+# ---- the paper's evaluation on the card ------------------------------------
+PAPER_KEYS = ("counters", "accuracy", "index_bytes", "bench_bytes_raw",
+              "n_reads")
+
+
+@pytest.mark.parametrize("ds,mode,path", [
+    ("D3", "ms_float", ("pluto_lookup", "pluto_lookup_rows", "segment_sum",
+                        "bitonic_sort", "chain_dp")),
+    ("D4", "ms_fixed", ("cheap_fused", "bitonic_sort", "chain_dp"))])
+def test_paper_record_kernels_plan_equals_jax_golden(ds, mode, path,
+                                                     tmp_path, monkeypatch):
+    """``pipeline_run`` under the kernels plan on the card gives the JAX
+    package's record (``jax_records.json``) and launches its path's
+    kernels, and no other."""
+    import json
+    import pathlib
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import common
+    dev = _card()
+    golden = json.loads((pathlib.Path(common.__file__).parent
+                         / "jax_records.json").read_text())
+    monkeypatch.setattr(common, "CACHE", tmp_path)
+    K.reset_launches()
+    rec = common.pipeline_run(ds, mode, backend="kernels", device=dev)
+    launches = dict(K.LAUNCHES)
+    K.reset_launches()
+    want = golden["records"][f"{ds}/{mode}"]
+    for k in PAPER_KEYS:
+        assert rec[k] == want[k], k
+    assert rec["device"] == "cuda:0"
+    assert (tmp_path / "cuda" / f"{ds}_{mode}_kernels.json").exists()
+    assert {k for k, v in launches.items() if v} == set(path), launches
+
+
+def test_filter_ablation_without_filters_kernels_equal_reference_plan():
+    """The ablation's "none" variant (no frequency filter, no vote filter,
+    float detection with late quantization) at the example's size: the
+    kernels plan equals the reference plan on the card."""
+    from repro_torch import kernels as K
+    from repro_torch.examples import filter_ablation
+    dev = _card()
+    name = "none (raw RawHash-like)"
+    ref, reads = filter_ablation.inputs()
+    K.reset_launches()
+    _, got = filter_ablation.map_variant(name, ref, reads, "kernels", dev)
+    assert K.LAUNCHES["bitonic_sort"] > 0 and K.LAUNCHES["chain_dp"] > 0
+    K.reset_launches()
+    _, want = filter_ablation.map_variant(name, ref, reads, "reference", dev)
+    assert not any(K.LAUNCHES.values())
+    assert got == want

@@ -15,7 +15,8 @@ from repro_torch.signal import simulate                       # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+# the pre-port ``benchmarks`` and ``scripts`` packages import repro and jax
+FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks", "scripts"}
 
 
 def _port_files():
@@ -110,6 +111,41 @@ def test_serving_path_defaults_to_cuda_and_raises_without_it(no_cuda,
     sd.submit("s", sig)
     sd.drain()
     assert sd.stream("s").n_done == 2
+
+
+def test_paper_evaluation_defaults_to_cuda_and_raises_without_it(
+        no_cuda, tmp_path, monkeypatch):
+    """The evaluation's entry points (records, the figure CLI, the serving
+    calibration's mapper, the filter ablation) run on the card unless
+    given the CPU; without a card they raise, whatever the record cache
+    holds."""
+    from repro_torch.benchmarks import (calibrate_serving, common,
+                                        fig11_speedup, run)
+    from repro_torch.examples import filter_ablation
+    monkeypatch.setattr(common, "CACHE", tmp_path)
+    (tmp_path / "cuda").mkdir()
+    (tmp_path / "cuda" / "D1_ms_fixed.json").write_text("{}")
+    ref, reads = filter_ablation.inputs(3_000, 2)
+    for call in (lambda: common.pipeline_run("D1", "ms_fixed"),
+                 lambda: common.workload_for("D1", "ms_fixed"),
+                 lambda: common.calibrated_host(),
+                 lambda: run.main(["table3"]),
+                 lambda: fig11_speedup.main([]),
+                 lambda: calibrate_serving.default_mapper(ref_events=2_000),
+                 lambda: calibrate_serving.main([]),
+                 lambda: filter_ablation.ablation(),
+                 lambda: filter_ablation.map_variant("+freq filter", ref,
+                                                     reads),
+                 lambda: filter_ablation.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    m = calibrate_serving.default_mapper(ref_events=2_000, device="cpu",
+                                         use_kernels=True)
+    assert m.device.type == "cpu" and m.backend == "kernels"
+    _, row = filter_ablation.map_variant("+freq filter", ref, reads,
+                                         device="cpu")
+    assert set(row) == {"precision", "recall", "f1", "n_anchors_postvote",
+                        "n_dp_pairs"}
 
 
 def test_kernels_plan_never_runs_the_plain_cheap_phase_on_cuda(small_index):
