@@ -37,6 +37,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    perstage  — ``cheap_phase(..., use_fused=False)`` under the kernels plan
                (event_detect and both lookups) on D1's and D5's first chunk
                must equal the fused kernel and the reference plan;
+   perread   — the per-read stage engine under the kernels plan: on D1's
+               and D5's first chunk ``cheap_phase_vmap`` (the stage
+               bodies: event_detect and both lookups once each, no
+               cheap_fused) must equal the fused ladder and the reference
+               plan, and ``map_chunk`` with ``chain_compaction`` off (the
+               whole-graph route: those and bitonic_sort and chain_dp once
+               each) the reference plan's whole graph and the compacted
+               kernels path; D5 ``ms_float`` and ``rh2``: the stage bodies
+               (segment_sum and both lookups) equal the reference plan;
+               ``map_read`` of 8 D5 reads equals their rows; the median
+               pass of a 2 s window of the whole graph, the stage bodies'
+               cheap phase and the shipped ladder on D5 is recorded;
    tiered    — the out-of-core index at D5 (16 tiles): the streaming
                build must equal ``tier_index(build_index(...))`` byte for
                byte; ``Mapper(backend="tiered")`` over 4096 reads (16
@@ -82,7 +94,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                and copy intervals), host time by op (traces in
                ``chiprun_out/``); then the D1 runs through the launcher
                (``repro_torch.launch.map_reads --use-kernels``, ``ms_fixed``
-               and ``--mode rh2``);
+               and ``--mode rh2``), and the port's examples and scripts
+               (quickstart, map_reads_e2e, kernel_support, smoke_core at
+               20,000 bases and 32 reads, smoke_ssdmodel, fault_sweep at 5
+               plans), each of which must exit 0;
 7. serve     — the serving path (SERVE_RUNS): ``serve_rsga`` with the
                early-termination ladder, 32 streams x 64 reads in chunks of
                32, at D5 and D1 ``ms_fixed`` (load 0.7, and 1.3 with
@@ -487,8 +502,15 @@ def capture_backends() -> dict:
     def dp(q, t, v, cfg):
         _CAPTURED["dp"] = (q.clone(), t.clone(), v.clone())
         return dp_ops.chain_dp(q, t, v, cfg)
-    stages.register_backend("sort", "capture", sort)
-    stages.register_backend("dp", "capture", dp)
+    stages.register_backend(
+        "sort", "capture",
+        lambda st, cfg, index: stages.sort_with(st, cfg, index, sorter=sort),
+        primitive=sort)
+    stages.register_backend(
+        "dp", "capture",
+        lambda st, cfg, index: stages.dp_with(
+            st, cfg, index, dp=lambda q, t, v: dp(q, t, v, cfg)),
+        primitive=dp)
     return _CAPTURED
 
 
@@ -953,6 +975,176 @@ def phase_perstage(data, dev):
         log(f"[perstage] {key}: use_fused=False launches {launches}; equals "
             f"the fused kernel and the reference plan; wall per chunk of "
             f"{CHUNK}: per-stage {ms:.3f} ms, fused {fused_ms:.3f} ms")
+    return out
+
+
+# ---- the per-read stage engine ---------------------------------------------
+# The whole-graph route's launches a chunk under the kernels plan (ms_fixed)
+PERREAD_PATH = PERSTAGE_PATH + ("bitonic_sort", "chain_dp")
+# the float modes' cheap stage bodies: the reference detection with the
+# segment_sum helper, and the two lookups
+PERREAD_FLOAT = ("pluto_lookup", "pluto_lookup_rows", "segment_sum")
+MAP_READ_READS = 8
+WINDOW_S = 2.0        # a timed window of repeated passes, each synced
+MIN_PASSES = 5
+
+
+def check_once(label: str, launches, expected) -> None:
+    """Every kernel of ``expected`` launched exactly once, no other."""
+    check_launches(label, launches, expected)
+    many = {k: launches[k] for k in expected if launches[k] != 1}
+    if many:
+        raise AssertionError(f"{label}: kernels launched more than once "
+                             f"{many} ({launches})")
+
+
+def equal_map(label: str, got, want) -> None:
+    """Two ``MapOutput``s on the device, field and counter."""
+    for f in ("t_start", "score", "mapped", "n_events"):
+        assert_equal(f"{label} {f}", getattr(got, f), getattr(want, f))
+    if set(got.counters) != set(want.counters):
+        raise AssertionError(f"{label}: counter keys differ")
+    for k in want.counters:
+        assert_equal(f"{label} counter {k}", got.counters[k],
+                     want.counters[k])
+
+
+def window(fn) -> dict:
+    """Passes of ``fn`` (each ended by a device sync) for WINDOW_S seconds,
+    at least MIN_PASSES: the median, fastest and slowest pass in ms, on
+    the host clock.  A single pass of a few ms on the host clock is launch
+    overhead and noise, not a measurement."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    passes = []
+    t_end = time.perf_counter() + WINDOW_S
+    while len(passes) < MIN_PASSES or time.perf_counter() < t_end:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        passes.append((time.perf_counter() - t0) * 1e3)
+    passes.sort()
+    return dict(median_ms=passes[len(passes) // 2], fastest_ms=passes[0],
+                slowest_ms=passes[-1], passes=len(passes))
+
+
+def phase_perread(data, dev, smi):
+    """The per-read stage engine under the kernels plan on the card.
+
+    D1 and D5 ``ms_fixed``, chunk 0 (CHUNK reads): ``cheap_phase_vmap``
+    (the stage bodies) must launch event_detect and both lookups once each
+    and no cheap_fused, and equal the fused ladder and the reference
+    plan's per-stage path in every output and per-read counter;
+    ``map_chunk`` with ``chain_compaction`` off (the whole-graph route)
+    must launch those and bitonic_sort and chain_dp once each, take the
+    "graph" route, and equal the reference plan's whole graph and the
+    compacted kernels path in every field and counter.  D5 ``ms_float``
+    and ``rh2``: ``cheap_phase_vmap`` launches the float stage bodies'
+    kernels and equals the reference plan's.  ``map_read`` of D5's first
+    MAP_READ_READS reads equals their rows of the whole-graph chunk.  Then
+    the median pass of a WINDOW_S window of three D5 routes: the
+    whole-graph chunk, ``cheap_phase_vmap``, and the shipped ladder
+    (``map_chunk``, fused cheap phase and compaction), a record beside the
+    card's name and power limit, not a claim."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import map_chunk, map_read, pipeline, stages
+    from repro_torch.core.index import index_arrays
+    out = dict(launches={}, card=smi)
+    for key in ("D1", "D5"):
+        cfg, _, reads, index = data[key]
+        arrays = index_arrays(index, dev)
+        x = torch.from_numpy(reads.signals[:CHUNK]).to(dev)
+        kern = stages.resolve_plan(cfg, stages.KERNELS)
+        ref = stages.resolve_plan(cfg, stages.REFERENCE)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = pipeline.cheap_phase_vmap(x, arrays, cfg, kern)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        check_once(f"{key} cheap_phase_vmap", launches, PERSTAGE_PATH)
+        out["launches"][f"{key} perread cheap"] = launches
+        equal_cheap(f"{key} cheap_phase_vmap vs fused", got,
+                    pipeline.cheap_phase(x, arrays, cfg, kern))
+        equal_cheap(f"{key} cheap_phase_vmap vs reference per-stage", got,
+                    pipeline.cheap_phase(x, arrays, cfg, ref))
+
+        cfg_g = cfg.replace(chain_compaction=False)
+        EH = cfg.max_events * cfg.max_hits_per_seed
+        torch.cuda.synchronize()
+        K.reset_launches()
+        pipeline.CHAIN_ROUTES.clear()
+        graph = map_chunk(x, arrays, cfg_g, use_kernels=True)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        routes = dict(pipeline.CHAIN_ROUTES)
+        check_once(f"{key} whole graph", launches, PERREAD_PATH)
+        if routes != {("graph", CHUNK, EH): 1}:
+            raise AssertionError(f"{key} whole graph: routes {routes}")
+        out["launches"][f"{key} perread graph"] = launches
+        K.reset_launches()
+        want = map_chunk(x, arrays, cfg_g, use_kernels=False)
+        torch.cuda.synchronize()
+        check_launches(f"{key} whole graph, reference plan", K.LAUNCHES, ())
+        equal_map(f"{key} whole graph vs reference plan", graph, want)
+        equal_map(f"{key} whole graph vs compacted kernels path", graph,
+                  map_chunk(x, arrays, cfg, use_kernels=True))
+        log(f"[perread] {key} ms_fixed chunk 0: cheap_phase_vmap launches "
+            f"{out['launches'][f'{key} perread cheap']}, equals the fused "
+            f"ladder and the reference plan; the whole graph launches "
+            f"{launches}, route {routes}, equals the reference plan's and "
+            f"the compacted kernels path ({int(graph.mapped.sum())} mapped)")
+        if key != "D5":
+            continue
+        for i in range(MAP_READ_READS):
+            K.reset_launches()
+            res, cnt = map_read(x[i], arrays, cfg, kern)
+            torch.cuda.synchronize()
+            check_once(f"D5 map_read {i}", dict(K.LAUNCHES), PERREAD_PATH)
+            for f, g in (("t_start", res.t_start), ("score", res.score),
+                         ("mapped", res.mapped)):
+                assert_equal(f"D5 map_read {i} {f}", g, getattr(graph, f)[i])
+            assert_equal(f"D5 map_read {i} n_events", cnt["n_events"],
+                         graph.n_events[i])
+        log(f"[perread] D5 map_read of reads 0..{MAP_READ_READS - 1}: each "
+            f"launches {list(PERREAD_PATH)} once and equals its row of the "
+            "whole-graph chunk")
+        times = {
+            "whole graph (map_chunk, chain_compaction off)":
+                window(lambda: map_chunk(x, arrays, cfg_g, use_kernels=True)),
+            "cheap_phase_vmap": window(
+                lambda: pipeline.cheap_phase_vmap(x, arrays, cfg, kern)),
+            "shipped ladder (map_chunk)":
+                window(lambda: map_chunk(x, arrays, cfg, use_kernels=True)),
+        }
+        K.reset_launches()
+        out["d5_ms_fixed_ms"] = times
+        log(f"[perread] D5 ms_fixed chunk of {CHUNK} reads, median pass of "
+            f"a {WINDOW_S:.0f} s window (fastest-slowest), {smi}: "
+            + "; ".join(f"{k} {v['median_ms']:.3f} ms ({v['fastest_ms']:.3f}"
+                        f"-{v['slowest_ms']:.3f}, {v['passes']} passes)"
+                        for k, v in times.items()))
+    cfg, _, reads, index = data["D5"]
+    arrays = index_arrays(index, dev)
+    x = torch.from_numpy(reads.signals[:CHUNK]).to(dev)
+    for mode in FLOAT_MODES:
+        cfg_m = cfg.with_mode(mode)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = pipeline.cheap_phase_vmap(
+            x, arrays, cfg_m, stages.resolve_plan(cfg_m, stages.KERNELS))
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        check_once(f"D5 {mode} cheap_phase_vmap", launches, PERREAD_FLOAT)
+        out["launches"][f"D5 {mode} perread cheap"] = launches
+        equal_cheap(f"D5 {mode} cheap_phase_vmap vs reference plan", got,
+                    pipeline.cheap_phase_vmap(x, arrays, cfg_m,
+                                              stages.resolve_plan(
+                                                  cfg_m, stages.REFERENCE)))
+        log(f"[perread] D5 {mode} chunk 0: cheap_phase_vmap launches "
+            f"{launches}, equals the reference plan's")
+    K.reset_launches()
     return out
 
 
@@ -1592,6 +1784,45 @@ def phase_launcher():
         log(f"[launcher] D1 {mode} F1 {acc['f1']:.3f}, launches {launches}")
         out[mode] = dict(f1=acc["f1"], launches=launches)
     K.reset_launches()
+    out["entry_points"] = entry_points()
+    return out
+
+
+# The port's examples and scripts on the card, each through its ``main``
+# (module under src/repro_torch, arguments); smoke_core at a small size,
+# the fault sweep at 5 plans
+ENTRY_POINTS = (
+    ("examples.quickstart", ("--use-kernels",)),
+    ("examples.map_reads_e2e", ("--use-kernels",)),
+    ("scripts.kernel_support", ()),
+    ("scripts.smoke_core", ("20000", "32", "--use-kernels")),
+    ("scripts.smoke_ssdmodel", ("--use-kernels",)),
+    ("scripts.fault_sweep", ("--plans", "5")),
+)
+
+
+def entry_points() -> dict:
+    """Each of ENTRY_POINTS on the card (``--device`` left at its default,
+    cuda): ``main`` must return 0 or None (map_reads_e2e returns its
+    accuracy dict) and raise nothing; its printed lines are kept in the
+    record and its last line logged."""
+    import contextlib
+    import importlib
+    import io
+    out = {}
+    for name, args in ENTRY_POINTS:
+        mod = importlib.import_module(f"repro_torch.{name}")
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(list(args))
+        lines = buf.getvalue().splitlines()
+        if rc not in (0, None) and not isinstance(rc, dict):
+            raise AssertionError(f"{name} {args}: exit {rc}; {lines[-3:]}")
+        out[name] = dict(args=list(args), lines=lines,
+                         seconds=time.time() - t0)
+        log(f"[launcher] python -m repro_torch.{name} {' '.join(args)}: "
+            f"exit 0 in {time.time() - t0:.1f} s; last line: {lines[-1]}")
     return out
 
 
@@ -1632,21 +1863,28 @@ def driver_state(sd) -> str:
 def check_stage_plans(label, mapper, stages_):
     """The backend each ladder stage resolved to: the full-length config's
     plan at every prefix, with every stage a kernel can take on a kernel
-    for ms_fixed (detect and the fused kernel stay on the reference in the
-    float modes, as in the JAX package's plan)."""
+    for ms_fixed and the fused kernel engaged (detect stays on the
+    reference in the float modes, and the fused kernel off, as in the JAX
+    package's plan)."""
+    from repro_torch.core import stages as stages_mod
     from repro_torch.core.realtime import stage_cfg
     full = dict(mapper.plan)
-    want_ref = {"detect", "fused"} if mapper.cfg.mode != "ms_fixed" else set()
+    fixed = mapper.cfg.mode == "ms_fixed"
+    want_ref = {"quantize", "seed", "vote", "finalize"} | (
+        set() if fixed else {"detect"})
     out = {}
     for L in stages_:
-        plan = dict(mapper.with_cfg(stage_cfg(mapper.cfg, L)).plan)
+        m = mapper.with_cfg(stage_cfg(mapper.cfg, L))
+        plan = dict(m.plan)
         out[L] = plan
         fell = [k for k, v in plan.items()
                 if (v == "reference") != (k in want_ref)]
-        if plan != full or fell:
+        fused = stages_mod.fused_cheap_backend(m.plan, m.cfg) is not None
+        if plan != full or fell or fused != fixed:
             raise AssertionError(f"{label}: the stage at {L} samples "
                                  f"resolved {plan} (full length: {full}; "
-                                 f"off the expected backend: {fell})")
+                                 f"off the expected backend: {fell}; "
+                                 f"fused kernel engaged: {fused})")
     log(f"[serve] {label}: every ladder stage {list(stages_)} resolved "
         f"{full}")
     return out
@@ -2278,18 +2516,15 @@ def equal_outputs(label, got, want) -> None:
                              f"vs {want.counters}")
 
 
-PAPER_WINDOW_S = 2.0   # the kernels plan's timed window a record
-PAPER_MIN_PASSES = 5
 
 
 def paper_reads(dev):
     """Every (dataset, mode) record's reads (D2-D4 new to the card): mapped
     in chunks of 32, every read of the kernels plan equals the reference
     plan's on the card.  Then the kernels plan maps the record's reads
-    again and again for ``PAPER_WINDOW_S`` seconds (at least
-    ``PAPER_MIN_PASSES`` passes, each ended by a device sync): reads/s of
+    again and again for ``WINDOW_S`` seconds (``window``: at least
+    ``MIN_PASSES`` passes, each ended by a device sync): reads/s of
     the median pass with the fastest and slowest, on the host clock."""
-    import torch
     from repro_torch.core import Mapper, build_index
     from repro_torch.signal import datasets
     rates = {}
@@ -2303,25 +2538,17 @@ def paper_reads(dev):
             equal_outputs(f"paper {ds} {mode}",
                           kern.map_signals(reads.signals, chunk=32),
                           plain.map_signals(reads.signals, chunk=32))
-            passes = []
-            t_end = time.perf_counter() + PAPER_WINDOW_S
-            while len(passes) < PAPER_MIN_PASSES or \
-                    time.perf_counter() < t_end:
-                t0 = time.perf_counter()
-                kern.map_signals(reads.signals, chunk=32)
-                torch.cuda.synchronize()
-                passes.append(time.perf_counter() - t0)
-            passes.sort()
+            w = window(lambda: kern.map_signals(reads.signals, chunk=32))
             n = len(reads.signals)
             rates[f"{ds} {mode}"] = dict(
-                n_reads=n, passes=len(passes),
-                reads_per_s=n / passes[len(passes) // 2],
-                fastest_reads_per_s=n / passes[0],
-                slowest_reads_per_s=n / passes[-1])
+                n_reads=n, passes=w["passes"],
+                reads_per_s=n / w["median_ms"] * 1e3,
+                fastest_reads_per_s=n / w["fastest_ms"] * 1e3,
+                slowest_reads_per_s=n / w["slowest_ms"] * 1e3)
     log("[paper] D1-D5, each mode, chunks of 32: every read's outputs and "
         "the counters of the kernels plan equal the reference plan's")
     log("[paper] kernels plan reads/s (median of a "
-        f"{PAPER_WINDOW_S:.0f} s window, slowest-fastest pass): " + "; ".join(
+        f"{WINDOW_S:.0f} s window, slowest-fastest pass): " + "; ".join(
             f"{k} {v['reads_per_s']:.1f} ({v['slowest_reads_per_s']:.1f}-"
             f"{v['fastest_reads_per_s']:.1f}, {v['passes']} passes)"
             for k, v in rates.items()))
@@ -2547,6 +2774,7 @@ def run() -> int:
                                  for k in ("D1", "D5")})
     floats = timed("float", phase_float, data, dev)
     perstage = timed("perstage", phase_perstage, data, dev)
+    perread = timed("perread", phase_perread, data, dev, smi)
     tiered_ = timed("tiered", phase_tiered, data, dev)
     main_routes = {(k, b, w) for k in maps
                    for (b, _, w) in maps[k]["route_keys"]}
@@ -2576,6 +2804,7 @@ def run() -> int:
     runs = {**{f"{d} ms_fixed": maps[d]["launches"] for d in maps},
             **{k: v["launches"] for k, v in floats.items()},
             **{f"{d} per-stage": v["launches"] for d, v in perstage.items()},
+            **perread["launches"],
             **{f"D5 tiered {k}": v["launches"]
                for k, v in tiered_["runs"].items()},
             **{f"serve {k}": v["launches"]
@@ -2630,7 +2859,8 @@ def run() -> int:
         dict(device=name, nvidia_smi=smi, build=build_record, kernels=summary,
              library_routes=dict(sort_rows_library=kern["sort_rows_library"]),
              launch_floor_ms=floor, map=maps,
-             float=floats, perstage=perstage, tiered=tiered_,
+             float=floats, perstage=perstage, perread=perread,
+             tiered=tiered_,
              launcher=launcher,
              routes=routes, serve=serve, sharded=sharded, paper=paper,
              phase_seconds=seconds,
@@ -2660,6 +2890,9 @@ def run() -> int:
             "staging_ms_per_chunk", "peak_bytes_by_rank")}
             for k, v in sharded[b]["runs"].items()}
             for b in ("gloo", "nccl") if b in sharded})))
+    log("[perread-summary] " + json.dumps(dict(
+        card=smi, d5_ms_fixed_ms=perread["d5_ms_fixed_ms"],
+        launches=perread["launches"], seconds=seconds["perread"])))
     log("[paper-summary] " + json.dumps(dict(
         card=smi, records=paper["records"],
         kernels_reads_per_s=paper["throughput"], table3=paper["table3"],

@@ -8,6 +8,7 @@ Public API:
                           build_index_streaming), paged by core/tiered.py
     stages                backend registry + plan resolution
     Mapper / map_chunk    online read mapping (CUDA by default)
+    map_read              one read through the stage engine
     map_chunk_sharded     the chunk program over a mesh (launch/mesh.py)
     partition_index       bucket-range partitions for the ring/a2a
                           schedules (repartition_index: drive-loss fold)
@@ -26,19 +27,22 @@ from repro_torch.core.faults import (FaultPlan, InjectedPrefetchError,
                                      TileReadError, sample_fault_plans)
 from repro_torch.core.index import (Index, TieredIndex, build_index,
                                     build_index_streaming, index_arrays,
-                                    index_from_numpy, partition_index,
-                                    repartition_index, tier_index)
+                                    index_arrays_unpacked, index_from_numpy,
+                                    partition_index, repartition_index,
+                                    tier_index)
 from repro_torch.core.pipeline import (MapOutput, Mapper, map_chunk,
-                                       map_chunk_sharded, score_accuracy)
+                                       map_chunk_sharded, map_read,
+                                       score_accuracy)
 from repro_torch.core.server import (ClassReport, ServeDriver, SLOClass,
                                      StreamReport, TenantBudget, TenantReport)
 
 __all__ = [
     "DEFAULT", "MODES", "MODE_RH2", "MODE_MS_FLOAT", "MODE_MS_FIXED",
-    "MarsConfig", "Index", "build_index", "index_arrays", "index_from_numpy",
+    "MarsConfig", "Index", "build_index", "index_arrays",
+    "index_arrays_unpacked", "index_from_numpy",
     "TieredIndex", "tier_index", "build_index_streaming", "partition_index",
     "repartition_index", "MapOutput", "Mapper", "map_chunk",
-    "map_chunk_sharded", "driver", "stages", "score_accuracy",
+    "map_chunk_sharded", "map_read", "driver", "stages", "score_accuracy",
     "costmodel", "ServeDriver", "StreamReport", "SLOClass", "ClassReport",
     "TenantBudget", "TenantReport", "FaultPlan", "TileReadError",
     "InjectedPrefetchError", "sample_fault_plans",

@@ -129,6 +129,13 @@ def sort_anchors(q_pos: torch.Tensor, t_pos: torch.Tensor,
     return decode_anchor_keys(skey)
 
 
+def sort_anchors_reference(q_pos, t_pos, valid, cfg: MarsConfig,
+                           sorter=None):
+    """Pre-fast-path behaviour: always full-sort all E*H keys (parity oracle
+    + "pre" side of the chaining microbenchmark)."""
+    return sort_anchors(q_pos, t_pos, valid, cfg, sorter=sorter, width=None)
+
+
 # --------------------------------------------------------------------------- #
 # Banded DP
 # --------------------------------------------------------------------------- #
@@ -187,6 +194,49 @@ def chain_dp(q: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
     return f_out, d_out
 
 
+def chain_dp_reference(q: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
+                       cfg: MarsConfig):
+    """Pre-fast-path DP: carries the full (N, A+B) f/diag arrays (B
+    sentinel slots in front) and slices the band window [i, i+B) each step,
+    its slots in age order, oldest first; the first argmax is the oldest
+    best predecessor.  Parity oracle for ``chain_dp`` and the "pre" side of
+    the chaining microbenchmark.  Its candidate score is contracted into
+    the same two fused multiply-adds as ``chain_dp``'s."""
+    N, A = q.shape
+    B = cfg.chain_band
+    dev = q.device
+    neg_gap_cost = -_f32(cfg.gap_cost, q)
+    neg_skip_cost = -_f32(cfg.skip_cost, q)
+    anchor_score = _f32(cfg.anchor_score, q)
+    neg = _f32(NEG, q)
+    half_neg = _f32(NEG / 2, q)
+    zero = _f32(0.0, q)
+    f = torch.full((N, A + B), NEG, dtype=torch.float32, device=dev)
+    d = torch.zeros((N, A + B), dtype=torch.int32, device=dev)
+    sent = torch.full((N, B), _SENT, dtype=torch.int32, device=dev)
+    tp = torch.cat([sent, t.to(torch.int32)], dim=1)
+    qp = torch.cat([sent, q.to(torch.int32)], dim=1)
+    for i in range(A):
+        ti, qi, vi = t[:, i:i + 1], q[:, i:i + 1], valid[:, i:i + 1]
+        fw, dw = f[:, i:i + B], d[:, i:i + B]
+        dt = ti - tp[:, i:i + B]
+        dq = qi - qp[:, i:i + B]
+        ok = (dt > 0) & (dq > 0) & (dt <= cfg.max_gap) & (dq <= cfg.max_gap)
+        gap = torch.abs(dt - dq).to(torch.float32)
+        skip = torch.minimum(dt, dq).to(torch.float32)
+        cand = fma_f32(fma_f32(fw, neg_gap_cost, gap), neg_skip_cost, skip)
+        cand = torch.where(ok & (fw > half_neg), cand, neg)
+        bj = torch.argmax(cand, dim=1, keepdim=True)       # first max
+        best = torch.gather(cand, 1, bj)
+        ext = best > zero
+        fi = anchor_score + torch.maximum(best, zero)
+        fi = torch.where(vi, fi, neg)
+        di = torch.where(ext, torch.gather(dw, 1, bj), ti - qi)
+        f[:, i + B:i + B + 1] = fi
+        d[:, i + B:i + B + 1] = di
+    return f[:, B:], d[:, B:]
+
+
 # --------------------------------------------------------------------------- #
 # Finalize
 # --------------------------------------------------------------------------- #
@@ -223,3 +273,24 @@ def empty_chain_result(cfg: MarsConfig) -> ChainResult:
     sq = (1 << _Q_BITS) - 1
     return ChainResult(t_start=max(st - sq, 0), score=NEG, score2=0.0,
                        mapped=False, n_anchors=0)
+
+
+def chain_anchors(q_pos: torch.Tensor, t_pos: torch.Tensor,
+                  valid: torch.Tensor, cfg: MarsConfig, sorter=None,
+                  dp=None):
+    """Sort, DP and finalize of (N, E, H) anchors at full width: (ChainResult
+    of (N,) tensors, {n_sorted, n_dp_pairs} (N,) int32).  ``sorter`` and
+    ``dp(sq, st, sv) -> (f, diag0)`` are injectable."""
+    sq, st, sv = sort_anchors(q_pos, t_pos, valid, cfg, sorter=sorter)
+    if dp is None:
+        f, d0 = chain_dp(sq, st, sv, cfg)
+    else:
+        f, d0 = dp(sq, st, sv)
+    res = best_chain(f, d0, sv, cfg)
+    n = valid.shape[0]
+    counters = dict(
+        n_sorted=torch.clamp(valid.reshape(n, -1).sum(1),
+                             max=cfg.max_anchors).to(torch.int32),
+        n_dp_pairs=(sv.sum(1) * cfg.chain_band).to(torch.int32),
+    )
+    return res, counters

@@ -5,11 +5,14 @@ It is level (2) of ``pipeline.cheap_phase``'s dispatch ladder: the plan's
 ``detector`` and ``gather`` plug in for the detect stage and the two
 gathers of the query (the ``event_detect`` and ``pluto_lookup`` kernels
 under the kernels plan; the torch reference math under the reference
-plan), or ``query_fn`` for the whole query (the tiered index's).  The
-tiered pre-pass runs the first half (``seed_keys``), and the chunk program
-resumes from its keys (``cheap_from_keys``).  From the Q-format samples
-on, the same program is the plain version of the fused ``cheap_fused``
-kernel (``kernels/cheap_fused/ref.py``).
+plan), or ``query_fn`` for the whole query (the query backend's stage
+body, where it is no gather: the tiered index's, ring, a2a).  Quantize,
+seed, query and vote run the stage bodies of ``stages`` (the reference
+package's cheap phase runs its registered bodies for them too), so the
+math lives in one place.  The chunk program resumes from the tiered
+pre-pass's keys (``cheap_from_keys``).  From the Q-format samples on, the
+same program is the plain version of the fused ``cheap_fused`` kernel
+(``kernels/cheap_fused/ref.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core import events, hashing, quantization, seeding, vote
+from repro_torch.core import events, stages
 from repro_torch.core.config import MarsConfig
 
 
@@ -26,9 +29,10 @@ def cheap_phase_stages(signals: torch.Tensor, index: Dict[str, torch.Tensor],
                        gather: Optional[Callable] = None,
                        query_fn: Optional[Callable] = None):
     """signals (R, S) f32 raw; ``detector(signals) -> (means, n_events)``
-    and ``gather(table, idx)`` or ``query_fn(keys, valid, index)`` are the
-    plan's (``stages.cheap_primitives``).  Returns (q_pos (R,E,H), t_pos
-    (R,E,H), hit_valid (R,E,H), per-read counters dict of (R,) int32)."""
+    and ``gather(table, idx)`` or ``query_fn(state, cfg, index)`` (a query
+    stage body) are the plan's (``stages.cheap_primitives``).  Returns
+    (q_pos (R,E,H), t_pos (R,E,H), hit_valid (R,E,H), per-read counters
+    dict of (R,) int32)."""
     means, n_ev = detector(signals)
     return cheap_from_events(means, n_ev, index, cfg, gather, query_fn)
 
@@ -41,43 +45,29 @@ def cheap_stages_quantized(xq: torch.Tensor, index: Dict[str, torch.Tensor],
     return cheap_from_events(means, n_ev, index, cfg)
 
 
-def seed_keys(means: torch.Tensor, n_ev: torch.Tensor, cfg: MarsConfig):
-    """The quantize and seed stages: (keys (R, E) int64 holding uint32
-    values, seed_valid (R, E) bool) after minimizer winnowing."""
-    E = cfg.max_events
-    ev_valid = torch.arange(E, device=means.device) < n_ev.unsqueeze(-1)
-    sym = quantization.quantize_events(means, ev_valid, cfg)
-    keys, seed_valid = hashing.pack_seeds(sym, n_ev, cfg)
-    seed_valid = hashing.minimizer_mask(keys, seed_valid,
-                                        cfg.minimizer_radius)
-    return keys, seed_valid
-
-
 def cheap_from_events(means: torch.Tensor, n_ev: torch.Tensor,
                       index: Dict[str, torch.Tensor], cfg: MarsConfig,
                       gather: Optional[Callable] = None,
                       query_fn: Optional[Callable] = None):
     """The stages after detect: quantize, seed, query and vote."""
-    keys, seed_valid = seed_keys(means, n_ev, cfg)
-    return cheap_from_keys(keys, seed_valid, n_ev, index, cfg, gather,
-                           query_fn)
+    st = {"events": means, "n_events": n_ev}
+    st = stages.seed_ref(stages.quantize_ref(st, cfg, index), cfg, index)
+    return cheap_from_keys(st["keys"], st["seed_valid"], n_ev, index, cfg,
+                           gather, query_fn)
 
 
 def cheap_from_keys(keys: torch.Tensor, seed_valid: torch.Tensor,
                     n_ev: torch.Tensor, index: Dict[str, torch.Tensor],
                     cfg: MarsConfig, gather: Optional[Callable] = None,
                     query_fn: Optional[Callable] = None):
-    """The query and vote stages from the seed keys on: ``query_fn`` when
-    the plan's query backend is a whole query function, else
-    ``seeding.query_index`` with ``gather``."""
+    """The query and vote stages from the seed keys on: ``query_fn`` (the
+    plan's query stage body) when its backend is no gather, else
+    ``stages.query_with`` with ``gather``."""
+    st = {"keys": keys, "seed_valid": seed_valid,
+          "counters": {"n_events": n_ev}}
     if query_fn is None:
-        t_pos, hit_valid, qc = seeding.query_index(keys, seed_valid, index,
-                                                   cfg, gather=gather)
+        st = stages.query_with(st, cfg, index, gather=gather)
     else:
-        t_pos, hit_valid, qc = query_fn(keys, seed_valid, index)
-    q_pos = torch.arange(cfg.max_events, dtype=torch.int32,
-                         device=keys.device)[None, :, None].expand(
-                             t_pos.shape)
-    hit_valid, vc = vote.vote_filter(q_pos, t_pos, hit_valid, cfg)
-    counters = {"n_events": n_ev, **qc, **vc}
-    return q_pos, t_pos, hit_valid, counters
+        st = query_fn(st, cfg, index)
+    st = stages.vote_ref(st, cfg, index)
+    return st["q_pos"], st["t_pos"], st["hit_valid"], st["counters"]

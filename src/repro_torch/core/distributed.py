@@ -21,9 +21,9 @@ Section 6.3).  Over a mesh (``launch/mesh.py``, one process per rank):
     (E, H) hit plane crosses the wire once instead of n times.
 
 There is NO separate per-read program here: the backends are registered
-``query`` backends (a whole query function over the ``"partitioned"``
-index kind), so ``stages.resolve_plan(cfg, "ring"|"a2a")`` plus
-``pipeline.map_chunk_sharded`` run the same chunk program as the
+``query`` backends (a stage body without a primitive, over the
+``"partitioned"`` index kind), so ``stages.resolve_plan(cfg,
+"ring"|"a2a")`` plus ``pipeline.map_chunk_sharded`` run the same chunk program as the
 single-device path, with every stage but ``query`` on the reference.  The
 per-read counter partials ride home with the hits, so pad-row masking and
 the chunk counter schema are those of the single-device path.
@@ -180,10 +180,19 @@ def _finish_query(valid, packed, probes, raw, exact):
                                                      probes, raw, exact)
 
 
-stages.register_backend("query", "ring", None, index_kind="partitioned",
-                        query_fn=_query_ring)
-stages.register_backend("query", "a2a", None, index_kind="partitioned",
-                        query_fn=_query_a2a)
+def _stage(query):
+    """The ``query`` stage body of a schedule (the state-dict protocol)."""
+    def body(state, cfg: MarsConfig, index):
+        t_pos, hit_valid, c = query(state["keys"], state["seed_valid"],
+                                    index, cfg)
+        return stages.with_query(state, cfg, t_pos, hit_valid, c)
+    return body
+
+
+stages.register_backend("query", "ring", _stage(_query_ring),
+                        index_kind="partitioned")
+stages.register_backend("query", "a2a", _stage(_query_a2a),
+                        index_kind="partitioned")
 
 
 # --------------------------------------------------------------------------- #

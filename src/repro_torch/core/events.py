@@ -49,6 +49,26 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # Normalization + early quantization (paper Section 5.2)
 # --------------------------------------------------------------------------- #
+def robust_normalize_reference(signal: torch.Tensor) -> torch.Tensor:
+    """Pre-fast-path per-read median/MAD normalization: two full sorts per
+    read, each median ``jnp.median``'s midpoint (lo + hi) * 0.5 of the
+    sorted row.  Parity oracle + the "pre" side of the cheap-phase
+    microbenchmark.  signal: (R, S)."""
+    S = signal.shape[-1]
+    m1, m2 = (S - 1) // 2, S // 2
+    half = _f32(0.5, signal)
+
+    def median(x):
+        xs = torch.sort(x, dim=-1).values
+        return (xs[:, m1:m1 + 1] + xs[:, m2:m2 + 1]) * half
+
+    med = median(signal)
+    mad = median(torch.abs(signal - med))
+    # the compiled reference contracts 1.4826*mad + eps into one FMA
+    scale = f32order.fma_f32(_f32(_EPS, signal), mad, _f32(1.4826, signal))
+    return (signal - med) / scale
+
+
 def robust_normalize(signal: torch.Tensor) -> torch.Tensor:
     """Per-read median/MAD normalization (f32).  signal: (R, S).
 
@@ -407,3 +427,25 @@ def detect_events(signal: torch.Tensor, cfg: MarsConfig,
     b = boundary_mask_float(x, cfg)
     return segment_means(x, b, signal.shape[-1], cfg.max_events,
                          segment_sum=segment_sum)
+
+
+def detect_events_reference(signal: torch.Tensor, cfg: MarsConfig,
+                            segment_sum=segment_sum_in_order):
+    """Pre-fast-path ``detect_events``: two-sort median/MAD normalization
+    (``robust_normalize_reference``) + the scatter-based segment reduction
+    (``segment_means_reference``, its sums from ``segment_sum``) in every
+    mode.  Parity oracle and the "pre" side of the cheap-phase
+    microbenchmark.  signal: (R, S) f32 raw."""
+    x = robust_normalize_reference(signal)
+    S, E = signal.shape[-1], cfg.max_events
+    if cfg.early_quantization and cfg.fixed_point:
+        xq = quantize_signal_fixed(x, cfg.frac_bits).to(torch.int32)
+        b = boundary_mask_fixed(xq, cfg)
+        means, n, cnts = segment_means_reference(xq, b, S, E, segment_sum)
+        means = means / _f32(float(1 << cfg.frac_bits), means)
+        return means, n, cnts
+    if cfg.early_quantization:
+        x = dequantize_fixed(quantize_signal_fixed(x, cfg.frac_bits),
+                             cfg.frac_bits)
+    b = boundary_mask_float(x, cfg)
+    return segment_means_reference(x, b, S, E, segment_sum)

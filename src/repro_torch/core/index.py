@@ -188,6 +188,19 @@ def index_arrays(index: Index, device) -> Dict[str, torch.Tensor]:
     )
 
 
+def index_arrays_unpacked(index: Index, device) -> Dict[str, torch.Tensor]:
+    """The pre-fast-path four-plane view on ``device``, consumed by
+    ``seeding.query_index_reference`` (parity oracle / microbenchmark):
+    ``bucket_start``, ``entries_key`` (the uint32 keys' bits as int32, so
+    the lookup kernel gathers them), ``entries_pos``, ``entries_cnt``."""
+    planes = dict(bucket_start=index.bucket_start,
+                  entries_key=index.entries_key.view(np.int32),
+                  entries_pos=index.entries_pos,
+                  entries_cnt=index.entries_cnt)
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(device)
+            for k, v in planes.items()}
+
+
 # --------------------------------------------------------------------------- #
 # Bucket-range partitioning
 # --------------------------------------------------------------------------- #

@@ -12,6 +12,14 @@ phase ``cheap_fused`` kernel, or per stage the ``event_detect`` detector
 and the ``pluto_lookup`` gathers; the ``bitonic_sort`` row sorter and the
 ``chain_dp`` banded DP).  Every plan gives the same results bit for bit.
 
+The per-read program is the stage graph (``stages.execute_stages``):
+``map_read`` runs it over one read, ``cheap_phase_vmap`` over a chunk's
+cheap stages, and the chunk program's whole-graph route over a chunk
+(with ``chain_compaction`` off, or a plan whose chain stages expose no
+primitives).  Each stage body maps the chunk's (R, ...) tensors at once,
+so under the kernels plan a stage is one launch a chunk, as the reference
+package's vmap of its unit-batch kernels is one grid.
+
 Everything runs eagerly on the device of the input tensors.  Where the
 reference package branches on device values inside one compiled program
 (``lax.cond``), this pipeline branches on the host: the compaction gate and
@@ -65,24 +73,49 @@ def check_device(device) -> torch.device:
     return device
 
 
+def map_read(signal: torch.Tensor, index: Dict[str, torch.Tensor],
+             cfg: MarsConfig, plan: Optional[stages.Plan] = None):
+    """signal: (S,) f32 -> (ChainResult, counters) of 0-d tensors via the
+    stage engine (``stages.execute_read``), on the signal's device."""
+    if plan is None:
+        plan = stages.resolve_plan(cfg, stages.REFERENCE)
+    return stages.execute_read(signal, index, cfg, plan)
+
+
 # --------------------------------------------------------------------------- #
 # Cheap phase (detect .. vote)
 # --------------------------------------------------------------------------- #
+def cheap_phase_vmap(signals: torch.Tensor, index: Dict[str, torch.Tensor],
+                     cfg: MarsConfig, plan: stages.Plan):
+    """The cheap phase through the stage bodies: CHEAP_STAGES (detect..vote)
+    over the chunk's state dict.  Level (3) of ``cheap_phase``'s ladder,
+    for plans whose cheap stages have no batch-level expression, and the
+    parity comparand of the other two levels.  Returns (q_pos, t_pos,
+    hit_valid, per-read counters)."""
+    state = stages.execute_stages({"signal": signals, "counters": {}},
+                                  index, cfg, plan, stages.CHEAP_STAGES)
+    return (state["q_pos"], state["t_pos"], state["hit_valid"],
+            state["counters"])
+
+
 def cheap_phase(signals: torch.Tensor, index: Dict[str, torch.Tensor],
                 cfg: MarsConfig, plan: stages.Plan, use_fused: bool = True):
     """The cheap phase (detect..vote) over a chunk.
 
     Dispatch ladder, most-fused first: (1) the whole-phase kernel
-    (``stages.register_fused_cheap``) when the plan resolved one — detect..
+    (``stages.fused_cheap_backend``) when the plan engages one — detect..
     vote in ONE launch; (2) the per-stage batch program
     (``cheap.cheap_phase_stages``) with the plan's ``detector`` and
     ``gather``: detect runs once per chunk and the query issues two
     whole-chunk gathers (the ``event_detect`` and ``pluto_lookup`` kernels
     where the plan resolved them; the reference math for a stage that
-    resolved to the reference, as in the reference package).
-    ``use_fused=False`` pins level (2).  Returns (q_pos, t_pos, hit_valid,
-    counters); ``counters["n_anchors_postvote"]`` is the per-read
-    post-filter anchor count the compaction gate keys on.
+    resolved to the reference, as in the reference package); (3)
+    ``cheap_phase_vmap``, the stage bodies, when ``stages.cheap_primitives``
+    finds no batch-level expression (a registered quantize, seed or vote
+    backend, or a detect backend without a primitive).
+    ``use_fused=False`` pins level (2) where the plan has one.  Returns
+    (q_pos, t_pos, hit_valid, counters); ``counters["n_anchors_postvote"]``
+    is the per-read post-filter anchor count the compaction gate keys on.
 
     A tiered index view that carries the pre-pass's planes
     (``tiered.PREPASS_KEYS``) skips detect, quantize and seed: the
@@ -90,6 +123,8 @@ def cheap_phase(signals: torch.Tensor, index: Dict[str, torch.Tensor],
     keys, validity and event counts are the ones they would give.
     """
     prims = stages.cheap_primitives(plan, cfg)
+    if prims is None:
+        return cheap_phase_vmap(signals, index, cfg, plan)
     if "t_pre_keys" in index:
         return cheap.cheap_from_keys(index["t_pre_keys"],
                                      index["t_pre_valid"],
@@ -111,7 +146,9 @@ def cheap_phase(signals: torch.Tensor, index: Dict[str, torch.Tensor],
 # (branch, rows chained, sort width): branch "full" chains every read of the
 # chunk, "compact" only the reads with anchors left, "empty" none (rows and
 # width 0); the width is a ladder width, or the full E*H when no ladder
-# width bounds the largest anchor count.  Host-side, one entry per chunk.
+# width bounds the largest anchor count.  Branch "graph" is the whole-graph
+# route (every stage body over every read, sorting all E*H keys).
+# Host-side, one entry per chunk.
 CHAIN_ROUTES: collections.Counter = collections.Counter()
 
 
@@ -199,31 +236,38 @@ def _chain_outputs(q_pos, t_pos, hit_valid, cnt, cfg: MarsConfig, prims):
 def _chunk_program(signals: torch.Tensor, index: Dict[str, torch.Tensor],
                    cfg: MarsConfig, plan: stages.Plan,
                    row_valid: torch.Tensor) -> MapOutput:
-    """The chunk body: cheap phase over every read, the chaining phase over
-    the reads with anchors left (``_chain_outputs``; with
-    ``chain_compaction`` off, the whole chunk at full width), pad rows
-    masked out of the counters, and the per-read counters summed to
-    CHUNK_COUNTER_SCHEMA.  The chain-stage counters are exact in closed
-    form: n_sorted = min(cnt, A), n_dp_pairs = n_sorted * B."""
+    """The chunk body: run the stage graph over a chunk, mask pad rows out
+    of the counters, and sum the per-read counters to CHUNK_COUNTER_SCHEMA.
+
+    With ``cfg.chain_compaction`` (default) the graph is split: the cheap
+    phase over every read, then the chaining phase over the reads with
+    anchors left (``_chain_outputs``).  The chain-stage counters are exact
+    in closed form: n_sorted = min(cnt, A), n_dp_pairs = n_sorted * B.
+    With compaction off, or a plan whose chain stages expose no primitives
+    (``stages.chain_primitives`` is None), the whole graph runs through the
+    stage bodies (``stages.execute_reads``), as the reference package's
+    whole-graph vmap does."""
     rv = row_valid
-    prims = stages.chain_primitives(plan, cfg)
-    q_pos, t_pos, hit_valid, counters = cheap_phase(signals, index, cfg,
-                                                    plan)
-    cnt = counters["n_anchors_postvote"]
-    n_sorted = torch.clamp(cnt, max=cfg.max_anchors)
-    counters = {**counters, "n_sorted": n_sorted,
-                "n_dp_pairs": n_sorted * cfg.chain_band}
-    missing = stages.missing_counters(counters)
-    if missing:
-        raise RuntimeError(f"plan {plan} produced incomplete counters; "
-                           f"missing {missing}")
-    if cfg.chain_compaction:
+    prims = (stages.chain_primitives(plan, cfg)
+             if cfg.chain_compaction else None)
+    if prims is None:
+        res, counters = stages.execute_reads(signals, index, cfg, plan)
+        CHAIN_ROUTES[("graph", signals.shape[0],
+                      cfg.max_events * cfg.max_hits_per_seed)] += 1
+        t_start, score, mapped = res.t_start, res.score, res.mapped
+    else:
+        q_pos, t_pos, hit_valid, counters = cheap_phase(signals, index, cfg,
+                                                        plan)
+        cnt = counters["n_anchors_postvote"]
+        n_sorted = torch.clamp(cnt, max=cfg.max_anchors)
+        counters = {**counters, "n_sorted": n_sorted,
+                    "n_dp_pairs": n_sorted * cfg.chain_band}
+        missing = stages.missing_counters(counters)
+        if missing:
+            raise RuntimeError(f"plan {plan} produced incomplete counters; "
+                               f"missing {missing}")
         t_start, score, mapped = _chain_outputs(
             q_pos, t_pos, hit_valid, cnt, cfg, prims)
-    else:
-        # no gate, no ladder: every read at full width
-        t_start, score, mapped = chain_phase(
-            q_pos, t_pos, hit_valid, cnt, cfg, prims, maxcnt=math.inf)
     zero = torch.zeros((), dtype=torch.int32, device=signals.device)
     summed = {k: torch.where(rv, v.to(torch.int32), zero).sum().to(
                   torch.int32)

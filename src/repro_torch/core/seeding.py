@@ -101,8 +101,12 @@ def query_index(keys: torch.Tensor, valid: torch.Tensor,
 
     Returns (t_pos (R, E, H) int32, hit_valid (R, E, H) bool, counters dict
     of (R,) int32 vectors).  ``gather(table, idx)`` is injectable; defaults
-    to the clipping index_select.
+    to the clipping index_select.  The packed layout (``index_arrays``)
+    takes the two-gather path; the unpacked four-plane view
+    (``index_arrays_unpacked``) falls through to ``query_index_reference``.
     """
+    if "entries_packed" not in index:
+        return query_index_reference(keys, valid, index, cfg, gather=gather)
     if gather is None:
         gather = _take_clip
     H = cfg.max_hits_per_seed
@@ -123,6 +127,40 @@ def query_index(keys: torch.Tensor, valid: torch.Tensor,
     ent = gather(index["entries_packed"], idx_c)             # (2, R, E, H)
     got_key, key_cnt = unpack_entries(ent[0], keys, cfg)
     t_pos = ent[1]
+
+    hit_valid, probes, raw, exact = match_entries(
+        keys, valid, got_key, key_cnt, cnt_bucket, cfg)
+    return t_pos, hit_valid, _query_counters(valid, hit_valid, probes, raw,
+                                             exact)
+
+
+def query_index_reference(keys: torch.Tensor, valid: torch.Tensor,
+                          index: Dict[str, torch.Tensor], cfg: MarsConfig,
+                          gather=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                                Dict]:
+    """Pre-fast-path query over the UNPACKED index view
+    (``index.index_arrays_unpacked``): four separate table gathers.  Parity
+    oracle + the "pre" side of the cheap-phase microbenchmark.  Same
+    signature and batch semantics as ``query_index``; ``entries_key``
+    holds the uint32 keys' bits as int32."""
+    if gather is None:
+        gather = _take_clip
+    H = cfg.max_hits_per_seed
+    bucket = (keys & (cfg.n_buckets - 1)).to(torch.int32)
+
+    start_end = gather(index["bucket_start"],
+                       torch.stack([bucket, bucket + 1]))    # (2, R, E)
+    start, end = start_end[0], start_end[1]
+    cnt_bucket = end - start
+
+    j = torch.arange(H, dtype=torch.int32, device=keys.device)
+    idx = start.unsqueeze(-1) + j                            # (R, E, H)
+    n_entries = index["entries_key"].shape[0]
+    idx_c = torch.clamp(idx, max=n_entries - 1)
+
+    got_key = gather(index["entries_key"], idx_c).to(torch.int64) & MASK32
+    t_pos = gather(index["entries_pos"], idx_c)
+    key_cnt = gather(index["entries_cnt"], idx_c)
 
     hit_valid, probes, raw, exact = match_entries(
         keys, valid, got_key, key_cnt, cnt_bucket, cfg)

@@ -1,51 +1,92 @@
-"""Stage registry and backend plans for the MARS RSGA pipeline.
+"""Stage-graph execution engine for the MARS RSGA pipeline.
 
-The per-read program runs the cheap stages (detect, quantize, seed, query,
-vote) and then the chain stages (sort, dp, finalize): the fine-grained
-tasks the MARS Control Unit sequences, paper Section 6.1.3.  A hand-written
-kernel registers itself from its ``ops.py`` at import:
+The MARS Control Unit (paper Section 6.1.3) sequences fine-grained tasks —
+event detection, quantization, seeding, hash-table query, seed-and-vote,
+anchor sort, chaining DP — across heterogeneous in-storage units.  This
+module is the software analogue, as the reference package's
+``repro.core.stages`` is: the per-read program is an explicit graph of
+named stages, each with one or more registered ``Backend``s (the plain
+torch *reference* implementation and, where a hand-written CUDA kernel
+exists, a *kernels* one).  Backend selection is resolved per config into a
+static, hashable *plan*: one (stage, backend) pair per stage of
+STAGE_ORDER.
 
-* four stages take batch-level primitives (``register_backend``), each
-  with an optional ``supports`` gate: ``detect`` (signals -> event means
-  and counts; the reference is ``events.detect_events``), ``query`` (the
-  clipping gather of ``seeding.query_index``), ``sort`` (a row sort) and
-  ``dp`` (``chaining.chain_dp``); quantize, seed, vote and finalize have no
-  kernel and always run the reference math;
-* a ``query`` backend may instead be a whole query function over another
-  index layout (``register_backend(..., query_fn=..., index_kind=...)``):
-  the tiered index's ``query:tiered`` (core/tiered.py) routes each bucket
-  through its tile's device cache slot, and the partitioned index's
-  ``query:ring`` / ``query:a2a`` (core/distributed.py) query one
-  bucket-range partition a rank over a mesh;
-* the cheap stages also have ONE whole-phase kernel
-  (``register_fused_cheap``, kernels/cheap_fused), which engages when the
-  plan's detect and query resolved to its backend and its own ``supports``
-  gate admits the config;
-* the float detection's in-order segment sum is a helper of the detect
-  stage's reference math (``register_segment_sum``), not a stage: a plan
-  binds the one its backend registered.
+Dataflow state is a flat dict of tensors keyed by the names below; every
+stage consumes/produces a documented subset.  Each tensor carries a leading
+read axis R (the reference package's ``vmap`` made explicit), and a body
+must be row-independent: row r of its outputs depends on row r of its
+inputs only, so a chunk's rows equal R single-read runs.
 
-``resolve_plan`` turns a config + requested backend into a static, hashable
-plan, stage by stage as the reference package's ``resolve_plan`` does: a
-stage without the requested backend, or whose gate rejects the config,
-resolves to the reference.  ``cheap_primitives`` and ``chain_primitives``
-hand the plan's callables to the two phases.
+    signal      (R, S)    f32   raw read samples            [input]
+    events      (R, E)    f32   event means                 [detect]
+    n_events    (R,)      i32   valid event count           [detect]
+    symbols     (R, E)    i32   quantized event symbols     [quantize]
+    keys        (R, E)    i64   seed hash keys (uint32)     [seed]
+    seed_valid  (R, E)    bool  valid seed mask             [seed]
+    q_pos       (R, E, H) i32   query positions of anchors  [query]
+    t_pos       (R, E, H) i32   target positions of anchors [query]
+    hit_valid   (R, E, H) bool  surviving anchors           [query, vote]
+    sq, st, sv  (R, A)          sorted anchors + validity   [sort]
+    f, diag0    (R, A)          DP chain scores/start diags [dp]
+    result      ChainResult     mapping decision            [finalize]
+    counters    dict of (R,)    uniform counter schema (COUNTER_SCHEMA)
+
+Registering a kernel backend (each kernel's ``ops.py`` does this at
+import; ``resolve_plan`` imports them lazily):
 
     from repro_torch.core import stages
-    stages.register_backend("sort", stages.KERNELS, primitive=sorter)
+    stages.register_backend("sort", stages.KERNELS, body,
+                            primitive=sort_rows)
+
+``body(state, cfg, index) -> state`` is the stage body; ``primitive`` is
+the batch-level kernel the chunk program's fast paths call directly.  A
+``query`` backend over another index layout (the tiered index's
+``query:tiered``, core/tiered.py; the partitioned index's ``query:ring`` /
+``query:a2a``, core/distributed.py) is a body without a primitive.  The
+cheap stages also have ONE whole-phase kernel (``register_fused_cheap``,
+kernels/cheap_fused), which ``fused_cheap_backend`` engages when the plan's
+detect and query resolved to its backend, quantize, seed and vote to the
+reference, and its own ``supports`` gate admits the config.  The float
+detection's in-order segment sum is a helper of the detect stage's
+reference math (``register_segment_sum``), not a stage: a plan binds the
+one its backends registered.
+
+Backends unavailable for a config (``supports`` false) or unregistered
+fall back to the reference implementation, so a plan always covers every
+stage.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import importlib
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
-from repro_torch.core import chaining, events, seeding
+import torch
+
+from repro_torch.core import (chaining, events, hashing, quantization,
+                              seeding, vote)
 from repro_torch.core.config import MarsConfig
 
-# The stages that take a batch-level primitive, in plan order.
-PRIMITIVE_STAGES: Tuple[str, ...] = ("detect", "query", "sort", "dp")
+State = Dict[str, Any]
+
+# Execution order of the per-read program (paper Fig. 1 steps 1a-3i).
+STAGE_ORDER: Tuple[str, ...] = (
+    "detect",     # (1a/1b) signal -> event means
+    "quantize",   # (1b)    event means -> symbols
+    "seed",       # (2c)    symbols -> hash keys (+ minimizer winnowing)
+    "query",      # (2d/2e) hash-table gather + frequency filter
+    "vote",       # (2f)    seed-and-vote filter
+    "sort",       # (3g/3h) anchor sort (bitonic Sorter/Merger)
+    "dp",         # (3i)    banded chaining DP
+    "finalize",   #         best/second-best chain -> mapping decision
+)
+
+# The filter-aware split used by the chunk program (core/pipeline.py): the
+# cheap phase runs on every read; the chaining phase runs only on the
+# compacted batch of reads that still have anchors after the filters.
+CHEAP_STAGES: Tuple[str, ...] = STAGE_ORDER[:5]   # detect .. vote
+CHAIN_STAGES: Tuple[str, ...] = STAGE_ORDER[5:]   # sort, dp, finalize
 
 # Canonical backend names ("kernels" plays the reference package's
 # "pallas" role: the hand-written CUDA kernels).
@@ -60,17 +101,19 @@ _BACKEND_MODULES: Dict[str, Tuple[str, ...]] = {
         "repro_torch.kernels.pluto_lookup.ops",
         "repro_torch.kernels.bitonic_sort.ops",
         "repro_torch.kernels.chain_dp.ops",
+        # whole-phase fused cheap kernel (registers through
+        # register_fused_cheap, not the per-stage registry)
         "repro_torch.kernels.cheap_fused.ops",
         "repro_torch.kernels.segment_sum.ops",
     ),
-    # out-of-core query over host-resident bucket-range tiles paged into a
-    # device tile cache (core/tiered.py)
-    "tiered": ("repro_torch.core.tiered",),
     # the distributed query schedules over a bucket-range-partitioned index
     # (a collective-permute ring / one all-to-all), each just another
     # ``query`` backend of the same chunk program (core/distributed.py)
     "ring": ("repro_torch.core.distributed",),
     "a2a": ("repro_torch.core.distributed",),
+    # out-of-core query over host-resident bucket-range tiles paged into a
+    # device tile cache (core/tiered.py)
+    "tiered": ("repro_torch.core.tiered",),
 }
 _loaded_backend_modules = set()
 
@@ -102,47 +145,72 @@ DEBUG_COUNTER_SCHEMA: Tuple[str, ...] = (
 )
 
 
-class Backend(NamedTuple):
-    primitive: Optional[Callable]
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """One implementation of one stage.
+
+    ``fn(state, cfg, index) -> state`` is the stage body over the state
+    dict.  ``supports`` gates configs the implementation cannot serve (e.g.
+    the fixed-point event-detect kernel under a float config); unsupported
+    backends resolve to the reference implementation instead.
+
+    ``primitive`` is the stage's underlying batch-level kernel, exposed so
+    the chunk program's fast paths can call it outside the state-dict
+    protocol (``cheap_primitives``, ``chain_primitives``):
+
+        detect: primitive(signals (R, S) f32, cfg) -> (means (R, E) f32,
+                n_events (R,) int32)
+        query:  primitive(table (N,) or (W, N), idx) -> the clipped gather
+        sort:   primitive(keys (N, L) int32) -> rows sorted ascending
+        dp:     primitive(q, t, valid (N, A), cfg) -> (f (N, A) f32,
+                diag0 (N, A) int32)
+
+    ``index_kind`` (one of INDEX_KINDS) declares the index layout the
+    backend consumes; ``plan_index_kind`` reads it off the query stage.
+    """
+    stage: str
+    name: str
+    fn: Callable[[State, MarsConfig, Dict[str, torch.Tensor]], State]
     supports: Optional[Callable[[MarsConfig], bool]] = None
+    primitive: Optional[Callable] = None
     index_kind: str = "replicated"
-    query_fn: Optional[Callable] = None
 
 
-# (stage, backend name) -> batch-level primitive + gate:
-#     detect: primitive(signals (R, S) f32, cfg) -> (means (R, E) f32,
-#             n_events (R,) int32)
-#     query:  primitive(table (N,) or (W, N), idx) -> clipped gather, or
-#             query_fn(keys (R, E), valid, index, cfg) -> (t_pos, hit_valid,
-#             per-read counters), seeding.query_index's contract
-#     sort:   primitive(keys (N, L) int32) -> rows sorted ascending
-#     dp:     primitive(q, t, valid (N, A), cfg) -> (f (N, A) f32,
-#             diag0 (N, A) int32)
 _REGISTRY: Dict[Tuple[str, str], Backend] = {}
 
 
-def register_backend(stage: str, name: str, primitive: Optional[Callable],
-                     supports=None, index_kind: str = "replicated",
-                     query_fn: Optional[Callable] = None) -> None:
-    """Register ``primitive`` as backend ``name`` of ``stage``; ``supports``
-    (cfg -> bool) gates the configs it serves.  A ``query`` backend that is
-    not a clipped gather passes ``query_fn`` (and no primitive) and names
-    the index layout it consumes (``index_kind``, one of INDEX_KINDS).  It
-    must be bit-exact to the stage's reference."""
-    if stage not in PRIMITIVE_STAGES:
-        raise ValueError(f"stage {stage!r} takes no primitive; stages: "
-                         f"{PRIMITIVE_STAGES}")
+def register_backend(stage: str, name: str, fn,
+                     supports=None, replace: bool = False,
+                     primitive=None, index_kind: str = "replicated") -> None:
+    """Register ``fn`` as backend ``name`` for ``stage``.
+
+    ``fn(state, cfg, index) -> state`` must be bit-exact to the stage's
+    reference backend — same state keys, same values, and the exact
+    COUNTER_SCHEMA counter increments (extra diagnostics are allowed only
+    as DEBUG_COUNTER_SCHEMA keys, which the chunk program drops) — and
+    row-independent.  ``supports(cfg)`` gates eligibility (unsupported
+    configs fall back to reference in resolve_plan); ``primitive``
+    optionally exposes a batch-level entry point; ``index_kind`` declares
+    the index layout the backend consumes.  ``replace`` allows
+    re-registering an existing (stage, name).
+    """
+    if stage not in STAGE_ORDER:
+        raise ValueError(f"unknown stage {stage!r}; stages: {STAGE_ORDER}")
     if index_kind not in INDEX_KINDS:
-        raise ValueError(f"unknown index kind {index_kind!r}; kinds: "
-                         f"{INDEX_KINDS}")
-    if (primitive is None) == (query_fn is None) or (
-            query_fn is not None and stage != "query"):
-        raise ValueError(f"backend {(stage, name)} needs exactly one of a "
-                         "primitive or (query stage only) a query_fn")
+        raise ValueError(f"unknown index_kind {index_kind!r}")
     key = (stage, name)
-    if key in _REGISTRY:
+    if key in _REGISTRY and not replace:
         raise ValueError(f"backend {key} already registered")
-    _REGISTRY[key] = Backend(primitive, supports, index_kind, query_fn)
+    _REGISTRY[key] = Backend(stage=stage, name=name, fn=fn, supports=supports,
+                             primitive=primitive, index_kind=index_kind)
+
+
+def get_backend(stage: str, name: str) -> Backend:
+    return _REGISTRY[(stage, name)]
+
+
+def registered_backends(stage: str) -> Tuple[str, ...]:
+    return tuple(sorted(n for (s, n) in _REGISTRY if s == stage))
 
 
 def _ensure_backend_loaded(name: str) -> None:
@@ -157,28 +225,24 @@ Plan = Tuple[Tuple[str, str], ...]
 
 
 def resolve_plan(cfg: MarsConfig, backend: str = REFERENCE) -> Plan:
-    """Resolve the backend choice for one config: a hashable ((stage,
-    backend_name), ...) tuple over PRIMITIVE_STAGES, each stage on
-    ``backend`` when it has one whose gate admits ``cfg`` and on the
-    reference otherwise, followed by ("fused", name): ``backend`` when its
-    whole-phase cheap kernel serves this plan (detect and query resolved
-    to it, and its gate admits ``cfg``), else the reference."""
+    """Resolve the per-stage backend choice for one config.
+
+    Returns a hashable ((stage, backend_name), ...) tuple in STAGE_ORDER.
+    Stages without the requested backend (or whose backend does not
+    support ``cfg``) fall back to reference.
+    """
     _ensure_backend_loaded(backend)
     known = ({REFERENCE} | set(_BACKEND_MODULES)
-             | {n for _, n in _REGISTRY} | set(_FUSED_CHEAP))
+             | {n for _, n in _REGISTRY})
     if backend not in known:
         raise ValueError(f"unknown backend {backend!r}; known: "
                          f"{sorted(known)}")
     plan = []
-    for stage in PRIMITIVE_STAGES:
+    for stage in STAGE_ORDER:
         b = _REGISTRY.get((stage, backend))
-        ok = b is not None and (b.supports is None or b.supports(cfg))
-        plan.append((stage, backend if ok else REFERENCE))
-    p = dict(plan)
-    fused = _FUSED_CHEAP.get(backend)
-    ok = (fused is not None and p["detect"] == p["query"] == backend
-          and (fused.supports is None or fused.supports(cfg)))
-    plan.append(("fused", backend if ok else REFERENCE))
+        if b is None or (b.supports is not None and not b.supports(cfg)):
+            b = _REGISTRY[(stage, REFERENCE)]
+        plan.append((stage, b.name))
     return tuple(plan)
 
 
@@ -188,53 +252,15 @@ def plan_index_kind(plan: Plan) -> str:
     return _REGISTRY[("query", dict(plan)["query"])].index_kind
 
 
-def chain_primitives(plan: Plan, cfg: MarsConfig):
-    """The batch-level (sorter, dp) primitives of ``plan``'s chain stages:
-    ``sorter(keys (N, L)) -> sorted rows`` and ``dp(q, t, valid) -> (f,
-    diag0)``."""
-    p = dict(plan)
-    sorter = _REGISTRY[("sort", p["sort"])].primitive
-    dp = _REGISTRY[("dp", p["dp"])].primitive
-    return sorter, (lambda q, t, v: dp(q, t, v, cfg))
-
-
-@dataclasses.dataclass(frozen=True)
-class FusedCheapBackend:
-    """A whole-phase fused implementation of the cheap stages:
-    fn(signals (R, S), index, cfg) -> (q_pos, t_pos, hit_valid, counters),
-    the exact ``pipeline.cheap_phase`` contract from ONE kernel launch."""
-    name: str
-    fn: Callable
-    supports: Optional[Callable[[MarsConfig], bool]] = None
-
-
-_FUSED_CHEAP: Dict[str, FusedCheapBackend] = {}
-
-
-def register_fused_cheap(name: str, fn, supports=None) -> None:
-    """Register a whole-phase fused cheap kernel under backend ``name``."""
-    if name in _FUSED_CHEAP:
-        raise ValueError(f"fused cheap backend {name!r} already registered")
-    _FUSED_CHEAP[name] = FusedCheapBackend(name=name, fn=fn,
-                                           supports=supports)
-
-
-def fused_cheap_backend(plan: Plan,
-                        cfg: MarsConfig) -> Optional[FusedCheapBackend]:
-    """``plan``'s whole-phase fused kernel, or None when the plan resolved
-    none or the kernel's ``supports`` gate rejects ``cfg``."""
-    b = _FUSED_CHEAP.get(dict(plan)["fused"])
-    if b is None or (b.supports is not None and not b.supports(cfg)):
-        return None
-    return b
-
-
+# --------------------------------------------------------------------------- #
+# The float detection's segment sum, by backend
+# --------------------------------------------------------------------------- #
 # The in-order f32 segment sum of the float detection's event means
-# (``events.segment_means_reference``), by backend.  It serves the detect
-# stage's reference math, so it is no stage of the plan (plans stay equal
-# to the reference package's); a plan binds the one its backend registered
-# (the kernels plan: the segment_sum kernel, since torch's own scatters on
-# the card add in no fixed order), the reference plan the plain loop.
+# (``events.segment_means_reference``).  It serves the detect stage's
+# reference math, so it is no stage of the plan (plans stay equal to the
+# reference package's); a plan binds the one its backends registered (the
+# kernels plan: the segment_sum kernel, since torch's own scatters on the
+# card add in no fixed order), the reference plan the plain loop.
 _SEGMENT_SUM: Dict[str, Callable] = {REFERENCE: events.segment_sum_in_order}
 
 
@@ -254,32 +280,167 @@ def _segment_sum(plan: Plan) -> Callable:
     return _SEGMENT_SUM[names[0] if names else REFERENCE]
 
 
+def stage_body(plan: Plan, stage: str) -> Callable:
+    """The body ``plan`` runs for ``stage``: the registered backend's
+    ``fn``, with the reference detection bound to the plan's segment sum."""
+    name = dict(plan)[stage]
+    fn = _REGISTRY[(stage, name)].fn
+    if stage == "detect" and name == REFERENCE:
+        fn = functools.partial(fn, segment_sum=_segment_sum(plan))
+    return fn
+
+
+# --------------------------------------------------------------------------- #
+# The engine
+# --------------------------------------------------------------------------- #
+def execute_stages(state: State, index: Dict[str, torch.Tensor],
+                   cfg: MarsConfig, plan: Plan,
+                   subset: Tuple[str, ...]) -> State:
+    """Run the stages of ``plan`` named in ``subset`` (in plan order) over an
+    existing state dict.  The chunk program uses this to split the per-read
+    graph into the cheap phase (CHEAP_STAGES) and the chaining phase
+    (CHAIN_STAGES)."""
+    for stage, _ in plan:
+        if stage in subset:
+            state = stage_body(plan, stage)(state, cfg, index)
+    return state
+
+
+def execute_reads(signals: torch.Tensor, index: Dict[str, torch.Tensor],
+                  cfg: MarsConfig, plan: Plan):
+    """Run the whole per-read stage graph over a chunk: signals (R, S) f32.
+
+    Returns (ChainResult of (R,) tensors, counters of (R,) tensors, exactly
+    COUNTER_SCHEMA plus any DEBUG_COUNTER_SCHEMA keys).  Under the kernels
+    plan each stage is one launch for the chunk.
+    """
+    state: State = {"signal": signals, "counters": {}}
+    state = execute_stages(state, index, cfg, plan, STAGE_ORDER)
+    counters = state["counters"]
+    missing = missing_counters(counters)
+    if missing:
+        raise RuntimeError(f"plan {plan} produced incomplete counters; "
+                           f"missing {missing}")
+    return state["result"], counters
+
+
+def execute_read(signal: torch.Tensor, index: Dict[str, torch.Tensor],
+                 cfg: MarsConfig, plan: Plan):
+    """Run the per-read stage graph.  signal: (S,) f32.
+
+    Returns (ChainResult of 0-d tensors, counters of 0-d tensors, exactly
+    COUNTER_SCHEMA): ``execute_reads`` over a unit read axis, stripped.
+    """
+    res, counters = execute_reads(signal.unsqueeze(0), index, cfg, plan)
+    return (chaining.ChainResult(*(x[0] for x in res)),
+            {k: v[0] for k, v in counters.items()})
+
+
+def chain_primitives(plan: Plan, cfg: MarsConfig):
+    """Resolve the (sorter, dp) batch-level primitives of ``plan``'s chain
+    stages for the compacted chaining phase, or None when the plan's chain
+    stages cannot be expressed through primitives (a registered backend
+    without a ``primitive``, or a non-reference finalize, must go through
+    the stage bodies instead: the chunk program's whole-graph route).
+
+    Returns (sorter(keys (N, L)) -> sorted rows, dp(q, t, valid) -> (f,
+    diag0)).
+    """
+    p = dict(plan)
+    if p["finalize"] != REFERENCE:
+        return None
+    prims = []
+    for stage in ("sort", "dp"):
+        b = _REGISTRY[(stage, p[stage])]
+        if b.name != REFERENCE and b.primitive is None:
+            return None
+        prims.append(b.primitive)
+    sorter = prims[0] if prims[0] is not None else chaining._sort_rows
+    dp_prim = prims[1] if prims[1] is not None else chaining.chain_dp
+    return sorter, (lambda q, t, v: dp_prim(q, t, v, cfg))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedCheapBackend:
+    """A whole-phase fused implementation of CHEAP_STAGES:
+    fn(signals (R, S), index, cfg) -> (q_pos, t_pos, hit_valid, counters),
+    the exact ``pipeline.cheap_phase`` contract from ONE kernel launch."""
+    name: str
+    fn: Callable
+    supports: Optional[Callable[[MarsConfig], bool]] = None
+
+
+_FUSED_CHEAP: Dict[str, FusedCheapBackend] = {}
+
+
+def register_fused_cheap(name: str, fn, supports=None,
+                         replace: bool = False) -> None:
+    """Register a whole-phase fused cheap kernel under backend ``name``.
+
+    The fused kernel engages only for plans whose detect AND query stages
+    resolved to ``name`` with quantize/seed/vote at reference — the
+    per-stage programs it replaces are exactly the ones it fuses."""
+    if name in _FUSED_CHEAP and not replace:
+        raise ValueError(f"fused cheap backend {name!r} already registered")
+    _FUSED_CHEAP[name] = FusedCheapBackend(name=name, fn=fn,
+                                           supports=supports)
+
+
+def fused_cheap_backend(plan: Plan,
+                        cfg: MarsConfig) -> Optional[FusedCheapBackend]:
+    """Resolve ``plan``'s whole-phase fused kernel, or None when the plan's
+    cheap stages are not the exact per-stage shape the fusion covers (or the
+    kernel's ``supports`` gate rejects ``cfg``)."""
+    p = dict(plan)
+    b = _FUSED_CHEAP.get(p["detect"])
+    if b is None or p["query"] != b.name:
+        return None
+    if any(p[s] != REFERENCE for s in ("quantize", "seed", "vote")):
+        return None
+    if b.supports is not None and not b.supports(cfg):
+        return None
+    return b
+
+
 class CheapPrimitives(NamedTuple):
     """``plan``'s cheap-phase callables, bound to the config: ``fused``
     (signals, index) -> the whole cheap-phase contract, or None; the
     per-stage level's ``detector`` (signals -> (means, n_events)) and
-    either ``gather`` (table, idx -> values, for ``seeding.query_index``)
-    or ``query_fn`` (keys, valid, index -> the whole query)."""
+    either ``gather`` (table, idx -> values, for ``seeding.query_index``;
+    None for its default clipping gather) or ``query_fn`` (the query
+    backend's stage body, when it is not gather-expressible)."""
     fused: Optional[Callable]
     detector: Callable
     gather: Optional[Callable]
     query_fn: Optional[Callable] = None
 
 
-def cheap_primitives(plan: Plan, cfg: MarsConfig) -> CheapPrimitives:
-    """Bind ``plan``'s cheap-phase backends to ``cfg``."""
+def cheap_primitives(plan: Plan, cfg: MarsConfig) -> Optional[CheapPrimitives]:
+    """Bind ``plan``'s batch-level cheap phase to ``cfg``, or None when the
+    plan's cheap stages cannot be expressed at batch level (a registered
+    non-reference quantize/seed/vote backend, or a non-reference detect
+    backend without a batch primitive): those plans run the stage bodies
+    (``pipeline.cheap_phase_vmap``)."""
     p = dict(plan)
+    for stage in ("quantize", "seed", "vote"):
+        if p[stage] != REFERENCE:
+            return None
+    det = _REGISTRY[("detect", p["detect"])]
+    if det.name != REFERENCE and det.primitive is None:
+        return None
+    if det.name == REFERENCE:
+        detector = functools.partial(_detect_reference, cfg=cfg,
+                                     segment_sum=_segment_sum(plan))
+    else:
+        detector = functools.partial(det.primitive, cfg=cfg)
     b = fused_cheap_backend(plan, cfg)
-    det = functools.partial(_REGISTRY[("detect", p["detect"])].primitive,
-                            cfg=cfg)
-    if p["detect"] == REFERENCE:
-        det = functools.partial(det, segment_sum=_segment_sum(plan))
+    fused = None if b is None else functools.partial(b.fn, cfg=cfg)
     q = _REGISTRY[("query", p["query"])]
-    return CheapPrimitives(
-        fused=None if b is None else functools.partial(b.fn, cfg=cfg),
-        detector=det, gather=q.primitive,
-        query_fn=(None if q.query_fn is None
-                  else functools.partial(q.query_fn, cfg=cfg)))
+    if q.name == REFERENCE:
+        return CheapPrimitives(fused, detector, None)
+    if q.primitive is not None:
+        return CheapPrimitives(fused, detector, q.primitive)
+    return CheapPrimitives(fused, detector, None, query_fn=q.fn)
 
 
 def missing_counters(counters) -> Tuple[str, ...]:
@@ -291,7 +452,114 @@ def _detect_reference(signals, cfg: MarsConfig, segment_sum):
     return means, n_ev
 
 
-register_backend("detect", REFERENCE, _detect_reference)
-register_backend("query", REFERENCE, seeding._take_clip)
-register_backend("sort", REFERENCE, chaining._sort_rows)
-register_backend("dp", REFERENCE, chaining.chain_dp)
+# --------------------------------------------------------------------------- #
+# Parametrized stage bodies.  Reference backends call these with the torch
+# default; kernel ops.py modules call them with their kernel (detector /
+# gather / sorter / dp) — keeping the math in ONE place.
+# --------------------------------------------------------------------------- #
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def detect_with(state: State, cfg: MarsConfig, index, detector=None,
+                segment_sum=events.segment_sum_in_order) -> State:
+    """Event detection: ``detector(signals) -> (means, n_events)``, or the
+    reference math (``events.detect_events``) with ``segment_sum``."""
+    if detector is None:
+        ev, n_ev, _ = events.detect_events(state["signal"], cfg, segment_sum)
+    else:
+        ev, n_ev = detector(state["signal"])
+    return {**state, "events": ev, "n_events": n_ev,
+            "counters": {**state["counters"], "n_events": _i32(n_ev)}}
+
+
+def quantize_ref(state: State, cfg: MarsConfig, index) -> State:
+    ev = state["events"]
+    ev_valid = (torch.arange(cfg.max_events, device=ev.device)
+                < state["n_events"].unsqueeze(-1))
+    sym = quantization.quantize_events(ev, ev_valid, cfg)
+    return {**state, "symbols": sym}
+
+
+def seed_ref(state: State, cfg: MarsConfig, index) -> State:
+    keys, valid = hashing.pack_seeds(state["symbols"], state["n_events"], cfg)
+    valid = hashing.minimizer_mask(keys, valid, cfg.minimizer_radius)
+    return {**state, "keys": keys, "seed_valid": valid}
+
+
+def with_query(state: State, cfg: MarsConfig, t_pos: torch.Tensor,
+               hit_valid: torch.Tensor, counters: Dict) -> State:
+    """The query stage's state update from a query's (t_pos (R, E, H),
+    hit_valid, per-read counters): the anchors' query positions are their
+    event slots.  Shared by every query body."""
+    q_pos = torch.arange(cfg.max_events, dtype=torch.int32,
+                         device=t_pos.device)[None, :, None].expand(
+                             t_pos.shape)
+    return {**state, "q_pos": q_pos, "t_pos": t_pos, "hit_valid": hit_valid,
+            "counters": {**state["counters"], **counters}}
+
+
+def query_with(state: State, cfg: MarsConfig, index, gather=None) -> State:
+    t_pos, hit_valid, c = seeding.query_index(
+        state["keys"], state["seed_valid"], index, cfg, gather=gather)
+    return with_query(state, cfg, t_pos, hit_valid, c)
+
+
+def vote_ref(state: State, cfg: MarsConfig, index) -> State:
+    hit_valid, c = vote.vote_filter(state["q_pos"], state["t_pos"],
+                                    state["hit_valid"], cfg)
+    return {**state, "hit_valid": hit_valid,
+            "counters": {**state["counters"], **c}}
+
+
+def sort_with(state: State, cfg: MarsConfig, index, sorter=None) -> State:
+    """All E*H anchor keys of each read sorted (``sorter``), the first
+    ``max_anchors`` kept: ``chaining.sort_anchors`` at full width."""
+    sq, st, sv = chaining.sort_anchors(state["q_pos"], state["t_pos"],
+                                       state["hit_valid"], cfg, sorter=sorter)
+    n_sorted = torch.clamp(state["hit_valid"].sum((-2, -1)),
+                           max=cfg.max_anchors)
+    return {**state, "sq": sq, "st": st, "sv": sv,
+            "counters": {**state["counters"], "n_sorted": _i32(n_sorted)}}
+
+
+def dp_with(state: State, cfg: MarsConfig, index, dp=None) -> State:
+    if dp is None:
+        f, diag0 = chaining.chain_dp(state["sq"], state["st"], state["sv"],
+                                     cfg)
+    else:
+        f, diag0 = dp(state["sq"], state["st"], state["sv"])
+    n_dp_pairs = state["sv"].sum(-1) * cfg.chain_band
+    return {**state, "f": f, "diag0": diag0,
+            "counters": {**state["counters"], "n_dp_pairs": _i32(n_dp_pairs)}}
+
+
+def finalize_ref(state: State, cfg: MarsConfig, index) -> State:
+    res = chaining.best_chain(state["f"], state["diag0"], state["sv"], cfg)
+    return {**state, "result": res}
+
+
+def _detect_ref(state, cfg, index, segment_sum=events.segment_sum_in_order):
+    return detect_with(state, cfg, index, segment_sum=segment_sum)
+
+
+def _query_ref(state, cfg, index):
+    return query_with(state, cfg, index, gather=None)
+
+
+def _sort_ref(state, cfg, index):
+    return sort_with(state, cfg, index, sorter=None)
+
+
+def _dp_ref(state, cfg, index):
+    return dp_with(state, cfg, index, dp=None)
+
+
+register_backend("detect", REFERENCE, _detect_ref)
+register_backend("quantize", REFERENCE, quantize_ref)
+register_backend("seed", REFERENCE, seed_ref)
+register_backend("query", REFERENCE, _query_ref)
+register_backend("vote", REFERENCE, vote_ref)
+register_backend("sort", REFERENCE, _sort_ref)
+register_backend("dp", REFERENCE, _dp_ref)
+register_backend("finalize", REFERENCE, finalize_ref)

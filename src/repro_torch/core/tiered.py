@@ -56,7 +56,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import cheap, seeding, stages
+from repro_torch.core import seeding, stages
 from repro_torch.core import faults as faults_mod
 from repro_torch.core.config import MarsConfig
 from repro_torch.core.index import TieredIndex, tile_checksum
@@ -150,19 +150,21 @@ def query_tiered(keys: torch.Tensor, valid: torch.Tensor,
     return t_pos, hit_valid, counters
 
 
-def _query_tiered_stage(keys, valid, index, cfg: MarsConfig):
-    """``query_tiered`` plus the chunk's cache telemetry as per-read DEBUG
-    counters (dropped by the chunk program before summing)."""
-    t_pos, hit_valid, c = query_tiered(keys, valid, index, cfg)
+def _query_tiered_stage(state, cfg: MarsConfig, index):
+    """The ``query:tiered`` stage body: ``query_tiered`` plus the chunk's
+    cache telemetry as per-read DEBUG counters (dropped by the chunk
+    program before summing)."""
+    keys = state["keys"]
+    t_pos, hit_valid, c = query_tiered(keys, state["seed_valid"], index, cfg)
     s = index["t_cache_stats"]
     rows = keys.shape[:-1]
     c.update({name: s[i].expand(rows)
               for i, name in enumerate(_STATS_COUNTERS)})
-    return t_pos, hit_valid, c
+    return stages.with_query(state, cfg, t_pos, hit_valid, c)
 
 
-stages.register_backend("query", "tiered", None, index_kind="tiered",
-                        query_fn=_query_tiered_stage)
+stages.register_backend("query", "tiered", _query_tiered_stage,
+                        index_kind="tiered")
 
 
 # --------------------------------------------------------------------------- #
@@ -170,15 +172,16 @@ stages.register_backend("query", "tiered", None, index_kind="tiered",
 # --------------------------------------------------------------------------- #
 def prepass(signals: torch.Tensor, cfg: MarsConfig, plan: stages.Plan,
             n_tiles: int):
-    """The traffic probe: the plan's own detect, quantize and seed over a
-    chunk (the batch level, as ``cheap.cheap_phase_stages`` runs them), and
-    a count of valid seeds per tile.  Its keys equal the chunk program's,
-    so the tiles it pages in cover every seed the query will issue (pad
-    rows included).  Returns (hist (n_tiles,) int64 on the host, keys,
-    seed_valid, n_events int32) with the last three on the device."""
+    """The traffic probe: the plan's own detect, quantize and seed stages
+    over a chunk (``stages.execute_stages``), and a count of valid seeds
+    per tile.  Its keys equal the chunk program's, so the tiles it pages in
+    cover every seed the query will issue (pad rows included).  Returns
+    (hist (n_tiles,) int64 on the host, keys, seed_valid, n_events int32)
+    with the last three on the device."""
     tile_log = int(np.log2(cfg.n_buckets // n_tiles))
-    means, n_ev = stages.cheap_primitives(plan, cfg).detector(signals)
-    keys, valid = cheap.seed_keys(means, n_ev, cfg)
+    st = stages.execute_stages({"signal": signals, "counters": {}}, {}, cfg,
+                               plan, ("detect", "quantize", "seed"))
+    keys, valid, n_ev = st["keys"], st["seed_valid"], st["n_events"]
     tile = (keys & (cfg.n_buckets - 1)) >> tile_log
     # invalid seeds count in an extra bin, dropped
     hist = torch.bincount(torch.where(valid, tile, n_tiles).reshape(-1),

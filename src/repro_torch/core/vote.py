@@ -26,6 +26,38 @@ from repro_torch.core.config import MarsConfig
 DIAG_SHIFT = 1 << 20
 
 
+def vote_filter_reference(q_pos: torch.Tensor, t_pos: torch.Tensor,
+                          valid: torch.Tensor,
+                          cfg: MarsConfig) -> Tuple[torch.Tensor, Dict]:
+    """Pre-fast-path vote filter: each read's two bin scatters, no clip
+    guard (a diag below -DIAG_SHIFT takes the arithmetic shift's bin, as in
+    the reference package).  q_pos, t_pos: (R, E, H) int32; valid: same-shape
+    bool.  Returns (valid', {n_anchors_postvote, n_votes_cast} of (R,)
+    int32).  Parity oracle + the "pre" side of the cheap-phase
+    microbenchmark."""
+    R = q_pos.shape[0]
+    red = (-2, -1)
+    i32 = torch.int32
+    if not cfg.use_vote_filter:
+        return valid, dict(n_anchors_postvote=valid.sum(red).to(i32),
+                           n_votes_cast=torch.zeros((R,), dtype=i32,
+                                                    device=valid.device))
+    v = cfg.voting_window_log2
+    nbins = cfg.vote_bins
+    diag = (t_pos - q_pos) + DIAG_SHIFT                     # projected start
+    w1 = ((diag >> v) % nbins).reshape(R, -1).to(torch.int64)
+    w2 = (((diag >> v) + 1) % nbins).reshape(R, -1).to(torch.int64)
+    ones = valid.reshape(R, -1).to(i32)
+    votes = torch.zeros((R, nbins), dtype=i32, device=valid.device)
+    votes.scatter_add_(1, w1, ones)
+    votes.scatter_add_(1, w2, ones)
+    v1 = torch.gather(votes, 1, w1).reshape(valid.shape)
+    v2 = torch.gather(votes, 1, w2).reshape(valid.shape)
+    keep = valid & (torch.maximum(v1, v2) >= cfg.thresh_voting)
+    return keep, dict(n_anchors_postvote=keep.sum(red).to(i32),
+                      n_votes_cast=(2 * valid.sum(red)).to(i32))
+
+
 def vote_filter(q_pos: torch.Tensor, t_pos: torch.Tensor, valid: torch.Tensor,
                 cfg: MarsConfig) -> Tuple[torch.Tensor, Dict]:
     """q_pos, t_pos: (R, E, H) int32; valid: same-shape bool.  Returns

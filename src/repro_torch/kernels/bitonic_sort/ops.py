@@ -59,4 +59,11 @@ def _sort_rows_kernel(keys: torch.Tensor) -> torch.Tensor:
     return out
 
 
-stages.register_backend("sort", stages.KERNELS, primitive=sort_rows)
+def _sort_kernels(state, cfg, index):
+    """Stage body: every read's E*H anchor keys sorted by the kernel in one
+    launch (3072 keys padded to 4096 lanes at the default config)."""
+    return stages.sort_with(state, cfg, index, sorter=sort_rows)
+
+
+stages.register_backend("sort", stages.KERNELS, _sort_kernels,
+                        primitive=sort_rows)

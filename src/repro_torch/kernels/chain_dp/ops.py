@@ -64,4 +64,12 @@ def _chain_dp_kernel(q, t, valid, cfg: MarsConfig):
     return f, d
 
 
-stages.register_backend("dp", stages.KERNELS, primitive=chain_dp)
+def _dp_kernels(state, cfg, index):
+    """Stage body: the banded DP of every read at A = max_anchors in one
+    launch."""
+    return stages.dp_with(state, cfg, index,
+                          dp=lambda q, t, v: chain_dp(q, t, v, cfg))
+
+
+stages.register_backend("dp", stages.KERNELS, _dp_kernels,
+                        primitive=chain_dp)

@@ -64,5 +64,12 @@ def _detect_supports(cfg: MarsConfig) -> bool:
             and ev.fixed_tstat_in_range(cfg) and cfg.min_dwell <= 1)
 
 
-stages.register_backend("detect", stages.KERNELS, primitive=event_detect,
-                        supports=_detect_supports)
+def _detect_kernels(state, cfg, index):
+    """Stage body (state-dict protocol): the kernel detects the whole
+    (R, S) block of the state in one launch."""
+    return stages.detect_with(state, cfg, index,
+                              detector=lambda s: event_detect(s, cfg))
+
+
+stages.register_backend("detect", stages.KERNELS, _detect_kernels,
+                        supports=_detect_supports, primitive=event_detect)

@@ -63,4 +63,11 @@ def _lookup_kernel(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(table.shape[:-1] + idx.shape).to(table.dtype)
 
 
-stages.register_backend("query", stages.KERNELS, primitive=lookup)
+def _query_kernels(state, cfg, index):
+    """Stage body: the hash-table query with the lookup kernels' gathers
+    (one ``pluto_lookup`` and one ``pluto_lookup_rows`` launch a chunk)."""
+    return stages.query_with(state, cfg, index, gather=lookup)
+
+
+stages.register_backend("query", stages.KERNELS, _query_kernels,
+                        primitive=lookup)

@@ -113,3 +113,11 @@ def sample_reads(ref: Reference, n_reads: int, signal_len: int = 1024,
     return ReadSet(signals=signals, true_pos=true_pos, true_strand=true_strand,
                    n_bases=n_bases, mappable=mappable)
 
+
+def to_forward_coord(t_pos: np.ndarray, span: np.ndarray, n_events: int):
+    """Convert double-genome target coords to (forward_pos, strand)."""
+    t_pos = np.asarray(t_pos)
+    strand = (t_pos >= n_events).astype(np.int8)
+    fwd = np.where(strand == 0, t_pos,
+                   n_events - 1 - ((t_pos - n_events) + span - 1))
+    return fwd.astype(np.int64), strand

@@ -427,7 +427,8 @@ def test_no_duplicated_per_read_program():
         assert name not in src, name
     for name in ("ring", "a2a"):
         b = stages._REGISTRY[("query", name)]
-        assert b.index_kind == "partitioned" and b.query_fn is not None
+        assert b.index_kind == "partitioned" and b.primitive is None
+        assert b.fn is not None
 
 
 @pytest.fixture(scope="module")

@@ -11,7 +11,10 @@ redesigned kernels: the sort's edge rows at every padded width, the DP's
 tie-heavy anchors, the fused cheap phase's edge reads and generic-instance
 configs, the segment sum's edge ids, the event detection's edge reads in
 both its instances (and the fused kernel's detection on the same reads),
-and the 1-D lookup's edge indices.  Then the serving path (the prefix
+and the 1-D lookup's edge indices.  Then the per-read stage engine
+under the kernels plan (``cheap_phase_vmap``, the whole-graph chunk,
+``map_read``, a body-only sort backend: each kernel once a chunk, never a
+plain version, equal to the reference plan), the serving path (the prefix
 ladder's shapes, ``ServeDriver``'s kernels plan against its reference
 plan) and the tiered index (``Mapper(backend="tiered")`` against the
 resident kernels plan, a slot evicted while the chunk that reads it is
@@ -589,6 +592,165 @@ def test_kernels_plan_never_runs_the_plain_cheap_phase_on_the_card(
             for g, w in zip(got[:3], want[:3]):
                 assert torch.equal(g, w)
             assert all(torch.equal(got[3][k], want[3][k]) for k in want[3])
+
+
+# --------------------------------------------------------------------------- #
+# The per-read stage engine on the card
+# --------------------------------------------------------------------------- #
+# the kernels each route launches once, under the kernels plan
+PERREAD_CHEAP = {"ms_fixed": ("event_detect", "pluto_lookup",
+                              "pluto_lookup_rows"),
+                 "ms_float": ("pluto_lookup", "pluto_lookup_rows",
+                              "segment_sum"),
+                 "rh2": ("pluto_lookup", "pluto_lookup_rows", "segment_sum")}
+PERREAD_CHAIN = ("bitonic_sort", "chain_dp")
+
+
+def _launched_once(expected):
+    from repro_torch import kernels as K
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        k: 1 for k in expected}, K.LAUNCHES
+
+
+@pytest.mark.parametrize("mode", ["ms_fixed", "ms_float", "rh2"])
+def test_cheap_phase_vmap_kernels_plan_equals_reference_plan(d5, d5_signals,
+                                                             mode):
+    """The stage bodies' cheap phase under the kernels plan launches its
+    kernels once each (never cheap_fused) and equals the reference plan's
+    stage bodies and, in ms_fixed, the fused ladder."""
+    from repro_torch import kernels as K
+    from repro_torch.core import pipeline, stages
+    cfg, arrays, _ = d5
+    c = cfg.with_mode(mode)
+    kern = stages.resolve_plan(c, stages.KERNELS)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    got = pipeline.cheap_phase_vmap(d5_signals, arrays, c, kern)
+    torch.cuda.synchronize()
+    _launched_once(PERREAD_CHEAP[mode])
+    wants = [pipeline.cheap_phase_vmap(d5_signals, arrays, c,
+                                       stages.resolve_plan(c,
+                                                           stages.REFERENCE)),
+             pipeline.cheap_phase(d5_signals, arrays, c, kern)]
+    torch.cuda.synchronize()
+    for want in wants:
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+        assert set(got[3]) == set(want[3])
+        assert all(torch.equal(got[3][k], want[3][k]) for k in want[3])
+
+
+def _equal_map(got, want):
+    for f in ("t_start", "score", "mapped", "n_events"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert set(got.counters) == set(want.counters)
+    for k in want.counters:
+        assert torch.equal(got.counters[k], want.counters[k]), k
+
+
+@pytest.mark.parametrize("mode", ["ms_fixed", "ms_float", "rh2"])
+def test_whole_graph_map_chunk_kernels_plan_equals_reference_plan(
+        d5, d5_signals, mode):
+    """``chain_compaction`` off: the whole graph through the stage bodies,
+    every kernel of the route once (the sort at 3072 keys a read, the DP
+    at 512 anchors), the "graph" route; with four pad rows it equals the
+    reference plan's whole graph and the compacted kernels path."""
+    from repro_torch import kernels as K
+    from repro_torch.core import map_chunk, pipeline
+    cfg, arrays, _ = d5
+    c = cfg.with_mode(mode).replace(chain_compaction=False)
+    n = d5_signals.shape[0]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    pipeline.CHAIN_ROUTES.clear()
+    got = map_chunk(d5_signals, arrays, c, use_kernels=True, n_valid=n - 4)
+    torch.cuda.synchronize()
+    _launched_once(PERREAD_CHEAP[mode] + PERREAD_CHAIN)
+    EH = c.max_events * c.max_hits_per_seed
+    assert dict(pipeline.CHAIN_ROUTES) == {("graph", n, EH): 1}
+    _equal_map(got, map_chunk(d5_signals, arrays, c, use_kernels=False,
+                              n_valid=n - 4))
+    _equal_map(got, map_chunk(d5_signals, arrays,
+                              c.replace(chain_compaction=True),
+                              use_kernels=True, n_valid=n - 4))
+
+
+def test_map_read_kernels_plan_equals_its_chunk_row(d5, d5_signals):
+    """``map_read`` under the kernels plan: each read launches the route's
+    kernels once and equals the reference plan's map_read and its row of
+    the whole-graph chunk."""
+    from repro_torch import kernels as K
+    from repro_torch.core import map_chunk, map_read, stages
+    cfg, arrays, _ = d5
+    kern = stages.resolve_plan(cfg, stages.KERNELS)
+    chunk = map_chunk(d5_signals, arrays,
+                      cfg.replace(chain_compaction=False), use_kernels=True)
+    for i in range(4):
+        K.reset_launches()
+        res, cnt = map_read(d5_signals[i], arrays, cfg, kern)
+        torch.cuda.synchronize()
+        _launched_once(PERREAD_CHEAP["ms_fixed"] + PERREAD_CHAIN)
+        res_r, cnt_r = map_read(d5_signals[i], arrays, cfg)
+        for f in res._fields:
+            assert torch.equal(getattr(res, f), getattr(res_r, f)), f
+        assert all(torch.equal(cnt[k], cnt_r[k]) for k in cnt_r)
+        for f in ("t_start", "score", "mapped"):
+            assert torch.equal(getattr(res, f), getattr(chunk, f)[i]), f
+
+
+def test_stage_bodies_never_take_the_plain_versions_on_the_card(
+        d5, d5_signals, monkeypatch):
+    """Every kernel body of the whole graph, on CUDA tensors, launches its
+    kernel: with each wrapper's plain version replaced by one that raises,
+    the graph still runs (and launches each kernel once)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import stages
+    from repro_torch.kernels.bitonic_sort import ops as sort_ops
+    from repro_torch.kernels.chain_dp import ops as dp_ops
+    from repro_torch.kernels.event_detect import ops as ed_ops
+    from repro_torch.kernels.pluto_lookup import ops as pl_ops
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    for mod, name in ((sort_ops, "sort_rows_ref"), (dp_ops, "chain_dp_ref"),
+                      (ed_ops, "event_detect_rows_ref"),
+                      (pl_ops, "lookup_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+    cfg, arrays, _ = d5
+    K.reset_launches()
+    res, counters = stages.execute_reads(
+        d5_signals, arrays, cfg, stages.resolve_plan(cfg, stages.KERNELS))
+    torch.cuda.synchronize()
+    _launched_once(PERREAD_CHEAP["ms_fixed"] + PERREAD_CHAIN)
+    assert res.t_start.shape == (d5_signals.shape[0],)
+
+
+def test_state_dict_only_sort_backend_launches_the_sort_kernel(d5,
+                                                               d5_signals):
+    """A sort backend with a body and no primitive sends ``map_chunk`` down
+    the whole graph (compaction on); its body's sorter, the kernel,
+    launches once, and the chunk equals the reference plan's."""
+    from repro_torch import kernels as K
+    from repro_torch.core import map_chunk, pipeline, stages
+    from repro_torch.kernels.bitonic_sort.ops import sort_rows
+    cfg, arrays, _ = d5
+    stages.register_backend(
+        "sort", "body_only",
+        lambda st, c, index: stages.sort_with(st, c, index,
+                                              sorter=sort_rows))
+    try:
+        plan = tuple((s, "body_only" if s == "sort" else b)
+                     for s, b in stages.resolve_plan(cfg, stages.KERNELS))
+        K.reset_launches()
+        pipeline.CHAIN_ROUTES.clear()
+        got = map_chunk(d5_signals, arrays, cfg, plan=plan)
+        torch.cuda.synchronize()
+        assert [b for b, _, _ in pipeline.CHAIN_ROUTES] == ["graph"]
+        _launched_once(PERREAD_CHEAP["ms_fixed"] + PERREAD_CHAIN)
+        _equal_map(got, map_chunk(d5_signals, arrays, cfg,
+                                  use_kernels=False))
+    finally:
+        del stages._REGISTRY[("sort", "body_only")]
 
 
 # --------------------------------------------------------------------------- #

@@ -113,6 +113,31 @@ def test_serving_path_defaults_to_cuda_and_raises_without_it(no_cuda,
     assert sd.stream("s").n_done == 2
 
 
+def test_examples_and_scripts_default_to_cuda_and_raise_without_it(
+        no_cuda):
+    """The ported examples and scripts (``repro_torch.examples``,
+    ``repro_torch.scripts``, both under the import guard above) check the
+    device before any work: without a card and without ``--device cpu``
+    they raise."""
+    from repro_torch.examples import map_reads_e2e, quickstart
+    from repro_torch.scripts import (fault_sweep, kernel_support,
+                                     smoke_core, smoke_ssdmodel, sweep2,
+                                     sweep_params)
+    files = _port_files()
+    assert PORT / "scripts" / "kernel_support.py" in files
+    assert PORT / "examples" / "map_reads_e2e.py" in files
+    for call in (lambda: quickstart.main([]),
+                 lambda: map_reads_e2e.main(["--reads", "2"]),
+                 lambda: kernel_support.main([]),
+                 lambda: smoke_core.main(["3000", "2"]),
+                 lambda: smoke_ssdmodel.main([]),
+                 lambda: sweep2.main([]),
+                 lambda: sweep_params.main([]),
+                 lambda: fault_sweep.main(["--plans", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_paper_evaluation_defaults_to_cuda_and_raises_without_it(
         no_cuda, tmp_path, monkeypatch):
     """The evaluation's entry points (records, the figure CLI, the serving
@@ -161,14 +186,17 @@ def test_kernels_plan_never_runs_the_plain_cheap_phase_on_cuda(small_index):
     cfg = MarsConfig(hash_bits=10)
     wide = cfg.replace(tstat_window=13)
     kern = stages.resolve_plan(cfg, stages.KERNELS)
-    assert dict(kern) == {"detect": "kernels", "query": "kernels",
-                          "sort": "kernels", "dp": "kernels",
-                          "fused": "kernels"}
+    assert dict(kern) == {"detect": "kernels", "quantize": "reference",
+                          "seed": "reference", "query": "kernels",
+                          "vote": "reference", "sort": "kernels",
+                          "dp": "kernels", "finalize": "reference"}
+    assert stages.fused_cheap_backend(kern, cfg).name == "kernels"
     prims = stages.cheap_primitives(kern, cfg)
     assert prims.detector.func is ed_ops.event_detect
     assert prims.gather is pl_ops.lookup
     kern_w = stages.resolve_plan(wide, stages.KERNELS)
-    assert dict(kern_w)["detect"] == dict(kern_w)["fused"] == "reference"
+    assert dict(kern_w)["detect"] == "reference"
+    assert stages.fused_cheap_backend(kern_w, wide) is None
     prims_w = stages.cheap_primitives(kern_w, wide)
     assert prims_w.fused is None
     assert prims_w.detector.func is not ed_ops.event_detect

@@ -286,16 +286,15 @@ def test_tiered_plan_equals_jax(setup):
         d = setup[2][mode]
         tplan = dict(T.stages.resolve_plan(d["cfg_t"], "tiered"))
         jplan = dict(J.stages.resolve_plan(d["cfg_j"], "tiered"))
-        assert tplan == {"detect": "reference", "query": "tiered",
-                         "sort": "reference", "dp": "reference",
-                         "fused": "reference"}
-        assert {k: v for k, v in jplan.items() if k in tplan} == {
-            k: v for k, v in tplan.items() if k != "fused"}
+        assert tplan == {s: "tiered" if s == "query" else "reference"
+                         for s in T.stages.STAGE_ORDER}
+        assert jplan == tplan
         assert set(jplan.values()) == {"reference", "tiered"}
         plan = T.stages.resolve_plan(d["cfg_t"], "tiered")
         assert T.stages.plan_index_kind(plan) == "tiered"
         assert J.stages.plan_index_kind(J.stages.resolve_plan(
             d["cfg_j"], "tiered")) == "tiered"
+        assert T.stages.fused_cheap_backend(plan, d["cfg_t"]) is None
         prims = T.stages.cheap_primitives(plan, d["cfg_t"])
         assert prims.fused is None and prims.gather is None
         assert prims.detector.keywords["segment_sum"] is \
