@@ -156,7 +156,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                (the median pass of a 2 s window, with the fastest and
                slowest), the Table 3 lines as the card ran them, the
                phase's seconds;
-10. summary  — one JSON line of per-kernel results, then the last line
+10. bench    — the pipeline bench harness (``repro_torch.benchmarks.
+               microbench`` through ``repro_torch.scripts.bench_pipeline``):
+               on the quick workload every group's closure under the
+               kernels and the reference backend, launch counts zeroed
+               just before each call and read just after (the kernels
+               backend must launch exactly ``microbench.GROUP_KERNELS``,
+               the reference backend, the cache pair and fairness
+               nothing), every kernels-backend output equal to the
+               reference backend's; the quick and full profiles and the
+               six gate records into ``build/bench_pipeline/`` (copied to
+               ``chiprun_out/bench_pipeline_h100.json``), their
+               deterministic fields equal to the JAX package's
+               (``jax_microbench.json``); ``bench_pipeline.check`` of
+               those gate records against the committed
+               ``bench_pipeline_h100.json`` must exit 0.
+               The serving and cache gates run 9 rounds here
+               (``BENCH_GATE_ROUNDS``; the module's 25 stay);
+               ``[bench]`` lines: each group's min ms, median paired
+               pre/fast ratio and the card;
+11. summary  — one JSON line of per-kernel results, then the last line
                ``{"ok": true, "device": {...}}``.  Every log line also goes
                to ``chiprun_out/chip_smoke.log``.
 
@@ -828,6 +847,7 @@ def run_map(key, cfg, ref, reads, index, dev, expected=FUSED_PATH):
     import numpy as np
     import torch
     from repro_torch import kernels as K
+    from repro_torch.benchmarks import common
     from repro_torch.core import Mapper, driver, map_chunk, pipeline
     from repro_torch.core import score_accuracy
 
@@ -867,6 +887,14 @@ def run_map(key, cfg, ref, reads, index, dev, expected=FUSED_PATH):
         raise AssertionError(f"{key}: malformed outputs")
     acc = score_accuracy(out, reads.true_pos, reads.true_strand,
                          reads.mappable, reads.n_bases, ref.n_events)
+    # every read against the JAX package's streamed outputs
+    bad = common.digest_mismatch(
+        common.map_digest(out, CHUNK),
+        json.loads(common.MAP_DIGEST.read_text())[f"{key} {cfg.mode}"])
+    if bad:
+        raise AssertionError(f"{label}: the card's {READS} reads differ from "
+                             f"the JAX package's ({common.MAP_DIGEST.name}):"
+                             f" {bad}")
 
     # the first chunk against the plain path, on the card
     x = torch.from_numpy(sig[:CHUNK]).to(dev)
@@ -902,7 +930,8 @@ def run_map(key, cfg, ref, reads, index, dev, expected=FUSED_PATH):
         f"({READS / dt:.1f} reads/s), P={acc['precision']:.3f} "
         f"R={acc['recall']:.3f} "
         f"F1={acc['f1']:.3f}, peak {peak / 1e6:.1f} MB, launches {launches};"
-        f" chunk 0 equals the plain path")
+        f" every read equals the JAX package's ({common.MAP_DIGEST.name}), "
+        f"chunk 0 the plain path")
     log(f"[map] {label}: chain routes (branch/rows x sort width: chunks) "
         f"{res['chain_routes']}")
     return res
@@ -2723,6 +2752,194 @@ def phase_paper(dev):
     return out
 
 
+# ---- the pipeline bench harness --------------------------------------------
+BENCH_PROFILES = ("quick", "full")
+BENCH_OUT = ROOT / "build" / "bench_pipeline" / "BENCH_pipeline.json"
+# The gates' rounds this script runs where they differ from the module's
+# (bench_pipeline.PHASE_ROUNDS / CHECK_REPEATS): serving and cache at 25
+# rounds took about 15 and 9 s of the 48.5 s one gate measurement took on
+# the card (NVIDIA H100 80GB HBM3, 700.00 W); at 9 rounds, with the one
+# measurement both written and checked, the phase keeps within 150 s
+BENCH_GATE_ROUNDS = {"serving": 9, "cache": 9}
+
+
+def equal_tree(label: str, got, want) -> None:
+    """Exact equality of two nested outputs (tuples, lists, dicts, tensors
+    by ``assert_equal``, numpy arrays by dtype and value, scalars)."""
+    import numpy as np
+    import torch
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: keys {sorted(got)} vs "
+                                 f"{sorted(want)}")
+        for k in want:
+            equal_tree(f"{label}[{k}]", got[k], want[k])
+    elif isinstance(want, (tuple, list)):
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: {len(got)} vs {len(want)} items")
+        for i, (g, w) in enumerate(zip(got, want)):
+            equal_tree(f"{label}[{i}]", g, w)
+    elif isinstance(want, torch.Tensor):
+        assert_equal(label, got, want)
+    elif isinstance(want, np.ndarray):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"{label}: host arrays differ")
+    elif got != want:
+        raise AssertionError(f"{label}: {got!r} vs {want!r}")
+
+
+def bench_closures(dev) -> dict:
+    """Every closure of the harness on the quick workload (16 reads), under
+    the kernels and the reference backend: launch counts zeroed just
+    before each call and read just after (the kernels backend must launch
+    exactly ``microbench.GROUP_KERNELS[group]``, the reference backend
+    none), and every kernels-backend output equal to the reference
+    backend's (the fused pair to the reference cheap phase; the cache
+    pair, tiered against resident)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import microbench as mb
+    from repro_torch.core import stages
+    from repro_torch.scripts import bench_pipeline as bp
+    q = bp.PROFILES["quick"]
+    cfg, sig, arrays = mb.make_workload(q["n_reads"], q["ref_events"],
+                                        q["junk_frac"], device=dev)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        out = mb.block_until_ready(fn())
+        launches = dict(K.LAUNCHES)
+        K.reset_launches()
+        return out, launches
+
+    outs, launches = {}, {}
+    for backend in (stages.REFERENCE, stages.KERNELS):
+        for g, fn in mb.group_closures(cfg, sig, arrays, backend).items():
+            outs[backend, g], launches[backend, g] = counted(fn)
+    tiered, resident, _ = mb._cache_programs(cfg, sig, arrays)
+    fair = mb._fairness_runs(cfg, sig, arrays, stages.REFERENCE)
+    for g, fn in (("cache_tiered", tiered), ("cache_resident", resident),
+                  ("fairness", lambda: [fair(False), fair(True)])):
+        outs[stages.REFERENCE, g], launches[stages.REFERENCE, g] = \
+            counted(fn)
+    for (backend, g), n in launches.items():
+        want = (mb.GROUP_KERNELS[g] if backend == stages.KERNELS else ())
+        check_launches(f"bench {backend} {g}", n, want)
+    for (backend, g), out in outs.items():
+        if backend != stages.KERNELS:
+            continue
+        ref_g = "cheap" if g.startswith("fused") else g
+        equal_tree(f"bench {g} kernels vs reference", out,
+                   outs[stages.REFERENCE, ref_g])
+    equal_tree("bench cache tiered vs resident",
+               outs[stages.REFERENCE, "cache_tiered"],
+               outs[stages.REFERENCE, "cache_resident"])
+    kern = {g: {k: v for k, v in n.items() if v}
+            for (b, g), n in launches.items() if b == stages.KERNELS}
+    log("[bench] kernels backend launches a group (reference backend, "
+        "cache pair and fairness: none): " + "; ".join(
+            f"{g} {v}" for g, v in kern.items()))
+    log(f"[bench] every kernels-backend closure ({len(kern)}) equals the "
+        "reference backend's on the card; tiered equals resident")
+    return kern
+
+
+def bench_lines(measured, smi) -> None:
+    """One ``[bench]`` line a group: min ms of each side, the median paired
+    pre/fast ratio, the card."""
+    for name, prof in measured.items():
+        for backend, r in prof["backends"].items():
+            grid = f"{r['grid_reads']} reads"
+            for g in ("chain", "cheap", "detect", "query", "vote",
+                      "serving"):
+                if f"{g}_speedup" not in r:
+                    continue
+                log(f"[bench] {name} {backend} {g} ({grid}): fast "
+                    f"{r[g + '_fast'] * 1e3:.4f} ms, pre "
+                    f"{r[g + '_pre'] * 1e3:.4f} ms, median paired pre/fast "
+                    f"{r[g + '_speedup']:.3f}x ({smi})")
+            log(f"[bench] {name} {backend} chunk ({grid}): cheap "
+                f"{r['cheap'] * 1e3:.4f} ms, map_chunk "
+                f"{r['map_chunk'] * 1e3:.4f} ms, map_chunk_pre "
+                f"{r['map_chunk_pre'] * 1e3:.4f} ms ({smi})")
+        c, f = prof["cache"], prof["fused"]
+        log(f"[bench] {name} cache: tiered {c['cache_tiered'] * 1e3:.4f} ms,"
+            f" resident {c['cache_resident'] * 1e3:.4f} ms, median paired "
+            f"{c['cache_speedup']:.3f}x, hit rate {c['cache_hit_rate']:.3f},"
+            f" {c['cache_paged_bytes']} bytes paged ({smi})")
+        log(f"[bench] {name} fused ({f['fused_n_reads']} reads, "
+            f"{f['fused_mode']}): fused {f['fused_fast'] * 1e3:.4f} ms, "
+            f"per-stage {f['fused_pre'] * 1e3:.4f} ms, median paired "
+            f"{f['fused_speedup']:.3f}x ({smi})")
+        fr = prof["fairness"]
+        log(f"[bench] {name} fairness: acme victims "
+            f"{fr['fairness_acme_victims_legacy']} legacy, "
+            f"{fr['fairness_acme_victims_fair']} budgeted "
+            f"({fr['fairness_speedup']:.3f}x; virtual clock)")
+    for phase in ("chain", "cheap", "serving", "cache", "fused", "fairness"):
+        g = measured["quick"][f"{phase}_gate"]
+        log(f"[bench] gate {phase} ({g['backend']}, {g['rounds']} rounds): "
+            f"median paired {g[phase + '_speedup_median']:.3f}x ({smi})")
+
+
+def phase_bench(dev, smi):
+    """The pipeline bench harness on the card: every closure's launches and
+    equality (``bench_closures``); ``bench_pipeline``'s quick and full
+    profiles and its six gate records into ``build/`` (copied to
+    ``chiprun_out/bench_pipeline_h100.json``), their deterministic fields
+    against the JAX package's (``jax_microbench.json``); then
+    ``bench_pipeline.check`` of those gate records against the committed
+    card baseline must exit 0."""
+    import shutil
+    from repro_torch.benchmarks import microbench as mb
+    from repro_torch.scripts import bench_pipeline as bp
+    module_rounds = bp.PHASE_ROUNDS
+    bp.PHASE_ROUNDS = {**module_rounds, **BENCH_GATE_ROUNDS}
+    t0 = time.time()
+    kern = bench_closures(dev)
+    t_closures = time.time() - t0
+    measured = bp.measure(BENCH_PROFILES, device=dev, pallas_serving=True)
+    t_profiles = time.time() - t0 - t_closures
+    gates = bp.measure_gate(dev)
+    for phase, rec in gates.items():
+        measured["quick"][f"{phase}_gate"] = rec
+    t_gates = time.time() - t0 - t_closures - t_profiles
+    if BENCH_OUT.exists():
+        BENCH_OUT.unlink()
+    bp.write(BENCH_OUT, measured)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    shutil.copy(BENCH_OUT, out_dir / "bench_pipeline_h100.json")
+    golden = json.loads((ROOT / "src" / "repro_torch" / "benchmarks"
+                         / "jax_microbench.json").read_text())
+    for phase, rounds in BENCH_GATE_ROUNDS.items():
+        golden["quick"]["gates"][phase]["rounds"] = rounds
+    for name in BENCH_PROFILES:
+        bad = mb.deterministic_mismatches(measured[name], golden[name])
+        if bad:
+            raise AssertionError(f"bench {name}: deterministic fields differ "
+                                 f"from jax_microbench.json: {bad}")
+    log("[bench] deterministic fields of both profiles and the gate records "
+        "equal the JAX package's (jax_microbench.json; gate rounds "
+        f"{BENCH_GATE_ROUNDS} here)")
+    bench_lines(measured, smi)
+    t1 = time.time()
+    rc = bp.check(bp.BASELINE, dev, gates=gates)
+    t_check = time.time() - t1
+    bp.PHASE_ROUNDS = module_rounds
+    if rc != 0:
+        raise AssertionError(f"bench_pipeline --check against "
+                             f"{bp.BASELINE.name} exited {rc}")
+    log(f"[bench] check against the committed "
+        f"{bp.BASELINE.name}: exit 0; seconds: closures "
+        f"{t_closures:.1f}, profiles {t_profiles:.1f}, gates {t_gates:.1f}, "
+        f"check {t_check:.1f}")
+    return dict(launches=kern, profiles=measured,
+                seconds=dict(closures=t_closures, profiles=t_profiles,
+                             gates=t_gates, check=t_check))
+
+
 def main() -> int:
     try:
         return run()
@@ -2798,6 +3015,7 @@ def run() -> int:
     serve = timed("serve", phase_serve, data, dev)
     sharded = timed("sharded", phase_sharded, data, dev)
     paper = timed("paper", phase_paper, dev)
+    bench = timed("bench", phase_bench, dev, smi)
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)
@@ -2811,7 +3029,8 @@ def run() -> int:
                for k, v in serve["runs"].items()},
             **{f"sharded kernels rank {r}": v
                for r, v in enumerate(sharded["rank_launches"])},
-            **paper["launches"]}
+            **paper["launches"],
+            **{f"bench {g}": v for g, v in bench["launches"].items()}}
     sources = {
         "cheap_fused": ("src/repro_torch/csrc/cheap_fused.cu",
                         "src/repro/kernels/cheap_fused/cheap_fused.py:367",
@@ -2843,7 +3062,7 @@ def run() -> int:
         summary.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
             launches=runs[run][k], launches_run=run,
-            launches_by_run={n: v[k] for n, v in runs.items()},
+            launches_by_run={n: v.get(k, 0) for n, v in runs.items()},
             sharded_launches=[v[k] for v in sharded["rank_launches"]],
             equal=True, max_abs_err=r["max_abs_err"], ms=r["ms"],
             kernel_ms=r["ms"], plain_ms=r["plain_ms"],
@@ -2863,6 +3082,7 @@ def run() -> int:
              tiered=tiered_,
              launcher=launcher,
              routes=routes, serve=serve, sharded=sharded, paper=paper,
+             bench=bench,
              phase_seconds=seconds,
              seconds=time.time() - t_all),
         indent=1,
@@ -2898,6 +3118,11 @@ def run() -> int:
         kernels_reads_per_s=paper["throughput"], table3=paper["table3"],
         allocated_before=paper["allocated_before"],
         seconds=seconds["paper"])))
+    log("[bench-summary] " + json.dumps(dict(
+        card=smi, seconds=bench["seconds"], gates={
+            p: bench["profiles"]["quick"][f"{p}_gate"][f"{p}_speedup_median"]
+            for p in ("chain", "cheap", "serving", "cache", "fused",
+                      "fairness")})))
     log(f"[seconds] {time.time() - t_all:.1f}")
     log(smi)
     print(json.dumps({"kernels": summary}))

@@ -18,11 +18,12 @@ a time measured on the device the pipeline ran on.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -177,6 +178,56 @@ def calibrated_host(device=None) -> ssd_model.HostRates:
         inv_io=gm["io"], inv_event=gm["event"], inv_seed=gm["seed"],
         inv_chain=gm["chain"])
     return _CALIB_CACHE[key]
+
+
+# The JAX package's streamed outputs of chip_smoke.py's six [map] cells (D1
+# and D5 x rh2/ms_float/ms_fixed, 4096 reads in chunks of 512), as
+# ``map_digest`` gives them; tests/test_torch_map_digest.py writes it
+MAP_DIGEST = pathlib.Path(__file__).with_name("jax_map_digest.json")
+# each per-read field as little-endian bytes of one fixed dtype
+DIGEST_FIELDS = (("t_start", "<i4"), ("score", "<f4"), ("mapped", "|b1"),
+                 ("n_events", "<i4"))
+
+
+def map_digest(out, chunk: int) -> Dict:
+    """A digest of a streamed host ``MapOutput``: a SHA-256 of each per-read
+    field over the whole run, one of each ``chunk`` reads' fields (to name
+    the first chunk that differs), and the summed chunk counters."""
+    fields = {f: np.ascontiguousarray(np.asarray(getattr(out, f)), dt)
+              for f, dt in DIGEST_FIELDS}
+    n = len(fields["t_start"])
+    return dict(
+        n_reads=n, chunk=chunk,
+        fields={f: hashlib.sha256(a.tobytes()).hexdigest()
+                for f, a in fields.items()},
+        chunks=[hashlib.sha256(b"".join(a[i:i + chunk].tobytes()
+                                        for a in fields.values()))
+                .hexdigest() for i in range(0, n, chunk)],
+        counters={k: int(v) for k, v in sorted(out.counters.items())})
+
+
+def digest_mismatch(got: Dict, want: Dict) -> Optional[str]:
+    """None when two ``map_digest``s are equal, else what differs first: the
+    read count, the first differing chunk (and the fields that differ), or
+    the counters."""
+    if (got["n_reads"], got["chunk"]) != (want["n_reads"], want["chunk"]):
+        return (f"{got['n_reads']} reads in chunks of {got['chunk']} vs "
+                f"{want['n_reads']} in chunks of {want['chunk']}")
+    for ci, (g, w) in enumerate(zip(got["chunks"], want["chunks"])):
+        if g != w:
+            fields = [f for f in got["fields"]
+                      if got["fields"][f] != want["fields"][f]]
+            return (f"chunk {ci} (reads {ci * got['chunk']}-"
+                    f"{(ci + 1) * got['chunk'] - 1}) is the first that "
+                    f"differs; fields {fields}")
+    if got["fields"] != want["fields"]:
+        return "the per-read fields differ"
+    if got["counters"] != want["counters"]:
+        diff = {k: (got["counters"].get(k), want["counters"].get(k))
+                for k in set(got["counters"]) | set(want["counters"])
+                if got["counters"].get(k) != want["counters"].get(k)}
+        return f"counters differ (got, want): {diff}"
+    return None
 
 
 def csv_line(name: str, us_per_call: float, derived: str) -> str:

@@ -1102,3 +1102,108 @@ def test_filter_ablation_without_filters_kernels_equal_reference_plan():
     _, want = filter_ablation.map_variant(name, ref, reads, "reference", dev)
     assert not any(K.LAUNCHES.values())
     assert got == want
+
+
+# ---- the pipeline bench harness (benchmarks/microbench.py) -----------------
+BENCH_GROUPS = ("cheap", "chain_fast", "chain_pre", "map_chunk",
+                "map_chunk_pre", "serving_fast", "serving_pre", "cheap_fast",
+                "cheap_pre", "detect_fast", "detect_pre", "query_fast",
+                "query_pre", "vote_fast", "vote_pre", "fused_fast",
+                "fused_pre")
+
+
+def _tree_equal(got, want) -> bool:
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(_tree_equal(got[k], want[k])
+                                             for k in want)
+    if isinstance(want, (tuple, list)):
+        return len(got) == len(want) and all(_tree_equal(g, w)
+                                             for g, w in zip(got, want))
+    if isinstance(want, torch.Tensor):
+        return got.dtype == want.dtype and torch.equal(got, want)
+    if isinstance(want, np.ndarray):
+        return got.dtype == want.dtype and np.array_equal(got, want)
+    return got == want
+
+
+@pytest.fixture(scope="module")
+def bench_outputs():
+    """Every harness closure on the quick workload (16 reads) under both
+    backends: (outputs, launches) by (backend, group), launch counts zeroed
+    just before each call and read just after."""
+    dev = _card()
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import microbench as mb
+    from repro_torch.scripts import bench_pipeline as bp
+    q = bp.PROFILES["quick"]
+    work = mb.make_workload(q["n_reads"], q["ref_events"], q["junk_frac"],
+                            device=dev)
+    outs, launches = {}, {}
+    for backend in ("reference", "kernels"):
+        fns = dict(mb.group_closures(*work, backend))
+        if backend == "reference":
+            tiered, resident, _ = mb._cache_programs(*work)
+            fair = mb._fairness_runs(*work, backend)
+            fns.update(cache_tiered=tiered, cache_resident=resident,
+                       fairness=lambda: [fair(False), fair(True)])
+        for g, fn in fns.items():
+            torch.cuda.synchronize()
+            K.reset_launches()
+            outs[backend, g] = mb.block_until_ready(fn())
+            launches[backend, g] = {k for k, v in K.LAUNCHES.items() if v}
+    K.reset_launches()
+    return outs, launches
+
+
+@pytest.mark.parametrize("group", BENCH_GROUPS + ("cache_tiered",
+                                                  "cache_resident",
+                                                  "fairness"))
+def test_bench_group_launches_its_kernels(bench_outputs, group):
+    """The kernels backend launches exactly the kernels
+    ``microbench.GROUP_KERNELS`` names for the group; the reference
+    backend (and the cache pair and fairness, which take no backend)
+    none."""
+    from repro_torch.benchmarks.microbench import GROUP_KERNELS
+    _, launches = bench_outputs
+    if ("kernels", group) in launches:
+        assert launches["kernels", group] == set(GROUP_KERNELS[group])
+    if ("reference", group) in launches:
+        assert launches["reference", group] == set()
+
+
+@pytest.mark.parametrize("group", BENCH_GROUPS)
+def test_bench_kernels_closure_equals_reference(bench_outputs, group):
+    outs, _ = bench_outputs
+    want = outs["reference", "cheap" if group.startswith("fused") else group]
+    assert _tree_equal(outs["kernels", group], want)
+
+
+@pytest.fixture(scope="module")
+def bench_quick_profile():
+    dev = _card()
+    from repro_torch.benchmarks import microbench as mb
+    from repro_torch.scripts import bench_pipeline as bp
+    return mb.run(**{**bp.PROFILES["quick"], "repeats": 1}, device=dev)
+
+
+def test_bench_quick_profile_under_both_backends(bench_quick_profile):
+    import math
+    prof = bench_quick_profile
+    assert set(prof["backends"]) == {"reference", "kernels"}
+    assert prof["backends"]["kernels"]["grid_reads"] == 8
+    assert prof["fused"]["fused_mode"] == "cuda"
+    assert prof["machine"]["device_type"] == "cuda" and prof["machine"]["card"]
+    for b, r in prof["backends"].items():
+        for k in ("chain_fast", "chain_pre", "map_chunk", "map_chunk_pre",
+                  "cheap_fast", "cheap_pre", "serving_fast", "serving_pre"):
+            assert math.isfinite(r[k]) and r[k] > 0, (b, k)
+
+
+def test_bench_deterministic_fields_equal_jax_golden(bench_quick_profile):
+    import json
+    import pathlib
+    from repro_torch.benchmarks import microbench as mb
+    golden = json.loads((pathlib.Path(mb.__file__).parent
+                         / "jax_microbench.json").read_text())["quick"]
+    golden["workload"]["repeats"] = 1
+    assert mb.deterministic_mismatches(bench_quick_profile, golden) == []

@@ -173,6 +173,28 @@ def test_paper_evaluation_defaults_to_cuda_and_raises_without_it(
                         "n_dp_pairs"}
 
 
+def test_bench_harness_defaults_to_cuda_and_raises_without_it(no_cuda):
+    """The pipeline bench harness (``benchmarks/microbench.py``) and its
+    command line (``scripts/bench_pipeline.py``), both under the import
+    guard above, run on the card unless given the CPU: without a card they
+    raise before any work, ``--check`` and ``--compiled`` included."""
+    from repro_torch.benchmarks import microbench
+    from repro_torch.scripts import bench_pipeline
+    files = _port_files()
+    assert PORT / "benchmarks" / "microbench.py" in files
+    assert PORT / "scripts" / "bench_pipeline.py" in files
+    for call in (lambda: microbench.make_workload(2, 1_000),
+                 lambda: microbench.run(n_reads=2, ref_events=1_000),
+                 lambda: bench_pipeline.measure_gate(),
+                 lambda: bench_pipeline.main([]),
+                 lambda: bench_pipeline.main(["--quick"]),
+                 lambda: bench_pipeline.main(["--check"]),
+                 lambda: bench_pipeline.main(["--compiled"]),
+                 lambda: bench_pipeline.main(["--support"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_kernels_plan_never_runs_the_plain_cheap_phase_on_cuda(small_index):
     """The kernels plan's per-stage cheap level binds the ``event_detect``
     and ``lookup`` kernel primitives; a config outside the detect gate
