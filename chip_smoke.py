@@ -175,7 +175,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                (``BENCH_GATE_ROUNDS``; the module's 25 stay);
                ``[bench]`` lines: each group's min ms, median paired
                pre/fast ratio and the card;
-11. summary  — one JSON line of per-kernel results, then the last line
+11. lm       — the LM scaffold's serving path (``repro_torch.models``,
+               ``repro_torch.launch.serve``), which launches no
+               hand-written kernel (every launch count zeroed at the start
+               of the phase must read 0 at its end): qwen3-4b and
+               mamba2-780m at full width through the launcher (batch 4,
+               prompt 64, gen 32; once to warm up, once timed), the
+               parameters on the card adding up to the golden's count;
+               prefill and decode tok/s, ms a decode step against its
+               bound (parameter + cache bytes over 3.35 TB/s), peak
+               memory, and one profiled decode step's kernel launches and
+               busy share; at qwen3-4b's full width prefill(16) +
+               decode(1) against forward(17) (rtol = atol = 5e-2) and the
+               int8 cache (0.08); the card against the port on the CPU
+               (forward, loss, prefill + decode with bf16 and int8 caches)
+               at qwen3-4b's full width with 2 layers and for the ten
+               reduced configs, those also against the JAX package's
+               logits (``src/repro_torch/models/jax_lm_golden.json``),
+               within the family tolerances the golden states;
+12. summary  — one JSON line of per-kernel results, then the last line
                ``{"ok": true, "device": {...}}``.  Every log line also goes
                to ``chiprun_out/chip_smoke.log``.
 
@@ -2940,6 +2958,211 @@ def phase_bench(dev, smi):
                              gates=t_gates, check=t_check))
 
 
+# The LM scaffold's serving path (``lm`` phase): full width through the
+# launcher, with the JAX launcher's defaults
+LM_SERVE = (("qwen3-4b", 4_411_424_256), ("mamba2-780m", 857_170_176))
+LM_ARGV = ["--batch", "4", "--prompt-len", "64", "--gen", "32"]
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models import model as M
+    return sum(t.numel() * t.element_size()
+               for t in M.flatten(tree).values())
+
+
+def lm_serve(arch: str, n_params: int, gold: dict, smi: str) -> dict:
+    """``repro_torch.launch.serve`` at full width: once to warm up, once
+    timed.  The parameter count must equal the golden's, and the
+    parameters on the card must add up to it.  Then one more decode step
+    under torch.profiler: its kernel launches and the device's busy
+    share."""
+    import torch
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    argv = ["--arch", arch, *LM_ARGV]
+    toks = serve.main(argv)
+    if toks.shape != (4, 32):
+        raise AssertionError(f"lm {arch}: tokens {toks.shape}")
+    del toks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.run(serve.parse_args(argv))
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params, cache = res["cfg"], res["params"], res["cache"]
+    leaves = list(M.flatten(params).values())
+    on_card = sum(t.numel() for t in leaves)
+    if not (M.param_count(cfg) == on_card == n_params
+            == gold["full"][arch]["param_count"]):
+        raise AssertionError(f"lm {arch}: {M.param_count(cfg)} parameters, "
+                             f"{on_card} on the card, {n_params} expected")
+    if any(t.device.type != "cuda" for t in leaves):
+        raise AssertionError(f"lm {arch}: a parameter is off the card")
+    if not np.isfinite(res["tokens"]).all():
+        raise AssertionError(f"lm {arch}: tokens")
+    B, P, gen = 4, 64, 32
+    p_bytes, c_bytes = tree_bytes(params), tree_bytes(cache)
+    bound_ms = (p_bytes + c_bytes) / HBM_BYTES_PER_S * 1e3
+    tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+    step = lambda: M.decode_step(params, tok, cfg, cache=cache,
+                                 cache_index=P + gen - 1)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, by_kernel = device_busy(prof, f"trace_lm_{arch}_decode.json.gz")
+    launches = sum(n for n, _ in by_kernel.values())
+    out = dict(
+        arch=arch, params=on_card, param_bytes=p_bytes, cache_bytes=c_bytes,
+        prefill_ms=res["prefill_s"] * 1e3,
+        prefill_tok_s=B * P / res["prefill_s"],
+        decode_ms_per_step=res["decode_s"] / gen * 1e3,
+        decode_tok_s=B * gen / res["decode_s"],
+        decode_bound_ms=bound_ms, max_memory_allocated=peak,
+        step_wall_ms=wall * 1e3, step_busy_ms=busy * 1e3,
+        step_busy_share=busy / wall, step_launches=launches,
+        top_kernels=sorted(((k, n, us) for k, (n, us) in by_kernel.items()),
+                           key=lambda r: -r[2])[:8])
+    log(f"[lm] {arch} full width ({on_card:,} parameters, "
+        f"{p_bytes / 1e9:.3f} GB; cache {c_bytes / 1e6:.2f} MB), batch 4, "
+        f"prompt 64, gen 32: prefill {out['prefill_ms']:.3f} ms "
+        f"({out['prefill_tok_s']:.1f} tok/s), decode "
+        f"{out['decode_ms_per_step']:.3f} ms a step "
+        f"({out['decode_tok_s']:.2f} tok/s) against a bound of "
+        f"{bound_ms:.4f} ms (parameter + cache bytes over 3.35 TB/s); "
+        f"peak memory {peak / 2**30:.3f} GiB; one profiled decode step: "
+        f"{launches} kernel launches, wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%); {smi}")
+    for name, n, us in out["top_kernels"][:5]:
+        log(f"[lm]   device {us / 1e3:8.3f} ms  x{n:<4} {name[:90]}")
+    return dict(out, _params=params, _cfg=cfg)
+
+
+def lm_full_width_property(params, cfg, gold: dict, smi: str) -> dict:
+    """The JAX package's own property at full width (its test's bounds):
+    prefill(16) + decode(1) equals forward(17) at the last token within
+    rtol = atol = 5e-2, and the int8 cache within 0.08 of it."""
+    import torch
+    import numpy as np
+    from repro_torch.models import model as M
+    dev = torch.device("cuda", 0)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, 17)), dtype=torch.int32, device=dev)
+    want = M.forward(params, tokens, cfg)[0][:, -1].float().cpu().numpy()
+    out = {}
+    for name, kv in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        cache = M.init_cache(cfg, 1, 24, kv, dev)
+        _, cache = M.prefill(params, tokens[:, :16], cfg, cache=cache)
+        got = M.decode_step(params, tokens[:, 16:], cfg, cache=cache,
+                            cache_index=16)[0].float().cpu().numpy()
+        out[name] = float(np.abs(got - want).max() / np.abs(want).max())
+        if name == "bf16":
+            tol = gold["prefill_decode_tol"]
+            np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+        elif out[name] >= gold["int8_tol"]:
+            raise AssertionError(f"lm {cfg.name}: int8 cache {out[name]}")
+    log(f"[lm] {cfg.name} full width: prefill(16) + decode(1) against "
+        f"forward(17), max|diff|/max|forward| {out['bf16']:.5f} (rtol = "
+        f"atol = {gold['prefill_decode_tol']}), int8 cache "
+        f"{out['int8']:.5f} (< {gold['int8_tol']}); {smi}")
+    return out
+
+
+def lm_card_vs_cpu(label, cfg, params_dev, params_cpu, tokens, ctx,
+                   gold: dict, smi: str) -> dict:
+    """``golden.outputs`` on the card and on the CPU from the same weights;
+    every deviation within the family's tolerance (nll and aux within
+    ``nll_tol``)."""
+    import torch
+    from repro_torch.models import golden as G
+    dev = torch.device("cuda", 0)
+    t_cpu = torch.as_tensor(tokens)
+    c_cpu = None if ctx is None else torch.as_tensor(ctx)
+    card = G.outputs(params_dev, cfg, t_cpu.to(dev),
+                     None if c_cpu is None else c_cpu.to(dev))
+    host = G.outputs(params_cpu, cfg, t_cpu, c_cpu)
+    dev_ = G.deviations(card, host)
+    tol = gold["tolerance"][cfg.family]
+    for k, v in dev_.items():
+        limit = gold["nll_tol"] if k in ("nll", "aux") else tol
+        if not (v <= limit) or not torch.isfinite(card[k]).all():
+            raise AssertionError(f"lm {label}: card against CPU {k} {v} "
+                                 f"(limit {limit})")
+    log(f"[lm] {label}: card against CPU, logits {dev_['logits']:.5f}, "
+        f"decode {dev_['decode']:.5f}, int8 decode {dev_['decode_int8']:.5f}"
+        f" (of max|CPU|; limit {tol}), |nll| {dev_['nll']:.2e}, |aux| "
+        f"{dev_['aux']:.2e}; {smi}")
+    return dict(deviations=dev_, card=card)
+
+
+def phase_lm(smi):
+    """The LM scaffold's serving path, which launches no hand-written
+    kernel (its launch counts must all read 0): qwen3-4b and mamba2-780m
+    at full width through ``repro_torch.launch.serve``; the JAX package's
+    prefill/decode property at full width; the card against the port on
+    the CPU at qwen3-4b's full width with 2 layers, and for all ten
+    reduced configs, those also against the JAX package's logits
+    (``jax_lm_golden.json``)."""
+    import torch
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import golden as G
+    from repro_torch.models import model as M
+    gold = G.load()
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    K.reset_launches()
+    serve_runs = {}
+    for arch, n_params in LM_SERVE:
+        r = lm_serve(arch, n_params, gold, smi)
+        params, cfg = r.pop("_params"), r.pop("_cfg")
+        if arch == "qwen3-4b":
+            r["property"] = lm_full_width_property(params, cfg, gold, smi)
+        serve_runs[arch] = r
+        del params
+        torch.cuda.empty_cache()
+    # full width, 2 layers: the weights drawn on the card, copied to the CPU
+    cfg2 = get_config("qwen3-4b").replace(n_layers=2)
+    p_dev = M.init_params(cfg2, torch.Generator(dev).manual_seed(1), dev)
+    p_cpu = M.tree_map(lambda t: t.cpu(), p_dev)
+    tokens = np.random.default_rng(4).integers(0, cfg2.vocab, (2, 17))
+    cut = lm_card_vs_cpu("qwen3-4b full width, 2 layers", cfg2, p_dev, p_cpu,
+                         tokens.astype(np.int32), None, gold, smi)
+    del p_dev, p_cpu
+    torch.cuda.empty_cache()
+    reduced = {}
+    for arch in sorted(ARCHS):
+        cfg = get_config(arch).reduced()
+        p_cpu = M.seeded_params(cfg, gold["weights_seed"], "cpu")
+        p_dev = M.tree_map(lambda t: t.to(dev), p_cpu)
+        tokens, ctx = G.inputs(cfg, gold)
+        r = lm_card_vs_cpu(f"{arch}-reduced", cfg, p_dev, p_cpu, tokens,
+                           ctx, gold, smi)
+        jax_err = G.rel_err(G.digest(r["card"]["logits"], gold),
+                            gold["reduced"][arch])
+        if not jax_err <= gold["tolerance"][cfg.family]:
+            raise AssertionError(f"lm {arch}-reduced: card against the JAX "
+                                 f"golden {jax_err}")
+        log(f"[lm] {arch}-reduced: card against the JAX package's logits "
+            f"(jax_lm_golden.json) {jax_err:.5f} of max|JAX| (limit "
+            f"{gold['tolerance'][cfg.family]})")
+        reduced[arch] = dict(r["deviations"], jax_golden=jax_err)
+    launched = {k: v for k, v in K.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"lm: hand-written kernels launched {launched}")
+    seconds = time.time() - t0
+    log(f"[lm] no hand-written kernel launched (all {len(K.LAUNCHES)} "
+        f"counts 0); phase {seconds:.1f} s")
+    return dict(serve=serve_runs, cut_depth=cut["deviations"],
+                reduced=reduced, launches=dict(K.LAUNCHES), seconds=seconds)
+
+
 def main() -> int:
     try:
         return run()
@@ -2960,6 +3183,8 @@ def run() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS reduces split-K partials of bf16 products in f32 (the LM phase)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     t_all = time.time()
 
@@ -3016,6 +3241,7 @@ def run() -> int:
     sharded = timed("sharded", phase_sharded, data, dev)
     paper = timed("paper", phase_paper, dev)
     bench = timed("bench", phase_bench, dev, smi)
+    lm = timed("lm", phase_lm, smi)
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)
@@ -3082,7 +3308,7 @@ def run() -> int:
              tiered=tiered_,
              launcher=launcher,
              routes=routes, serve=serve, sharded=sharded, paper=paper,
-             bench=bench,
+             bench=bench, lm=lm,
              phase_seconds=seconds,
              seconds=time.time() - t_all),
         indent=1,
@@ -3123,6 +3349,12 @@ def run() -> int:
             p: bench["profiles"]["quick"][f"{p}_gate"][f"{p}_speedup_median"]
             for p in ("chain", "cheap", "serving", "cache", "fused",
                       "fairness")})))
+    log("[lm-summary] " + json.dumps(dict(
+        card=smi, serve={a: {k: r[k] for k in (
+            "prefill_tok_s", "decode_tok_s", "decode_ms_per_step",
+            "decode_bound_ms", "step_launches", "step_busy_share",
+            "max_memory_allocated")} for a, r in lm["serve"].items()},
+        seconds=lm["seconds"])))
     log(f"[seconds] {time.time() - t_all:.1f}")
     log(smi)
     print(json.dumps({"kernels": summary}))

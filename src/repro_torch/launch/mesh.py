@@ -286,6 +286,24 @@ def axis_size(mesh: Mesh, axes) -> int:
     return n
 
 
+def parse_mesh(spec: str, n_devices: int):
+    """The LM launchers' ``--mesh`` (the reference's ``launch/train.py``
+    parse_mesh).  The LM runs on one device: ``auto`` on one device and
+    ``1x1`` give the single-device mesh, which the LM takes as ``None``;
+    any other mesh raises (the distributed LM is ROADMAP queue 1 item
+    2c)."""
+    if spec == "auto":
+        dims = (1, 1) if n_devices == 1 else (n_devices // 2, 2)
+    else:
+        dims = tuple(int(x) for x in spec.split("x"))
+    if math.prod(dims) != 1:
+        raise NotImplementedError(
+            f"--mesh {spec} on {n_devices} device(s) gives a mesh of "
+            f"{math.prod(dims)} devices; the LM port runs on one (the "
+            "distributed LM is ROADMAP queue 1 item 2c)")
+    return None
+
+
 # --------------------------------------------------------------------------- #
 # Spawning the ranks of one process group on this host
 # --------------------------------------------------------------------------- #

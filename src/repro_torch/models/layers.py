@@ -1,0 +1,229 @@
+"""Shared transformer layers: RMSNorm, RoPE, GQA attention (full / sliding
+window / bidirectional / cross / decode-with-cache), SwiGLU MLP.
+
+Attention is an online-softmax loop over KV chunks (never the full (S, T)
+score matrix), in the reference's order of operations: its chunk size,
+its ``NEG_INF`` mask value and its f32 accumulation.
+
+Dtypes follow the reference's: a product of two bf16 operands that the
+reference asks for in f32 (``preferred_element_type=F32``) upcasts both
+operands first (``einsum(..., f32=True)``), so it is never rounded to bf16;
+every other product of bf16 operands is rounded to bf16 once, as the
+reference's is.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+           f32: bool = False) -> torch.Tensor:
+    """``jnp.einsum`` of two operands.  The operands are promoted to their
+    common dtype as JAX promotes them (torch refuses mixed dtypes); with
+    ``f32`` both are upcast to f32 first (the reference's
+    ``preferred_element_type=F32``: bf16 -> f32 is exact, so the product
+    is the same f32 product)."""
+    if f32:
+        a, b = a.to(F32), b.to(F32)
+    else:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return torch.einsum(eq, a, b)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    # statistics in f32; the inverse is cast to x's dtype and the product
+    # evaluated left to right, as the reference rounds it
+    var = torch.mean(torch.square(x.to(F32)), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * w
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D), pos: (S,) or (B, S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=F32,
+                                          device=x.device) / half))
+    if pos.ndim == 1:
+        ang = pos[None, :, None].to(F32) * freqs[None, None, :]
+    else:
+        ang = pos[..., None].to(F32) * freqs[None, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = einsum("bsd,df->bsf", x, w_gate)
+    u = einsum("bsd,df->bsf", x, w_up)
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    return einsum("bsf,fd->bsd", h, w_down)
+
+
+class AttnSpec(NamedTuple):
+    n_heads: int
+    n_kv: int
+    d_head: int
+    causal: bool = True
+    window: Optional[int] = None     # sliding-window size (None = full)
+    qk_norm: bool = False
+    rope_theta: float = 500_000.0
+    kv_chunk: int = 2048
+
+
+def _pad_time(t: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad axis 1 of (B, T, K, X) by n positions at the end."""
+    return F.pad(t, (0, 0, 0, 0, 0, n)) if n else t
+
+
+def mha_online(q: torch.Tensor, k, v, *, causal: bool,
+               window: Optional[int], q_offset, valid_len,
+               chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks.
+
+    q: (B, S, H, D); k, v: (B, T, K, D) with H a multiple of K (GQA) — OR
+    (values int8, scales) tuples for a quantized KV cache: each chunk is
+    dequantized inside the loop.  q_offset: position of q[0] (decode: the
+    cache index); valid_len: number of valid KV positions.  Masked scores
+    are ``NEG_INF``, not -inf: until a chunk holds a valid key their
+    probabilities are 1, and ``alpha`` wipes them out when one arrives, as
+    in the reference.  Returns (B, S, H, D) in q.dtype; accumulation in
+    f32.  The window may be a per-layer value (the hybrid stack's).
+    """
+    k, k_sc = k if isinstance(k, tuple) else (k, None)
+    v, v_sc = v if isinstance(v, tuple) else (v, None)
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    chunk = min(chunk, T)
+    n_chunks = -(-T // chunk)
+    pad = n_chunks * chunk - T
+    k, v = _pad_time(k, pad), _pad_time(v, pad)
+    if k_sc is not None:
+        k_sc, v_sc = _pad_time(k_sc, pad), _pad_time(v_sc, pad)
+    scale = 1.0 / math.sqrt(D)
+    qg = (q.reshape(B, S, K, G, D).to(F32) * scale).to(q.dtype)
+    dev = q.device
+    q_pos = int(q_offset) + torch.arange(S, device=dev)
+    c_pos = torch.arange(chunk, device=dev)
+
+    m = torch.full((B, S, K, G), NEG_INF, dtype=F32, device=dev)
+    l = torch.zeros((B, S, K, G), dtype=F32, device=dev)
+    acc = torch.zeros((B, S, K, G, D), dtype=F32, device=dev)
+    for c in range(n_chunks):
+        t0 = c * chunk
+        kb, vb = k[:, t0:t0 + chunk], v[:, t0:t0 + chunk]
+        if k_sc is not None:           # dequantize the int8 chunk
+            kb = (kb.to(F32) * k_sc[:, t0:t0 + chunk].to(F32)).to(q.dtype)
+            vb = (vb.to(F32) * v_sc[:, t0:t0 + chunk].to(F32)).to(q.dtype)
+        s = einsum("bskgd,btkd->bskgt", qg, kb, f32=True)
+        k_pos = t0 + c_pos
+        ok = k_pos[None, :] < valid_len
+        if causal:
+            ok = ok & (q_pos[:, None] >= k_pos[None, :])
+        if window is not None:
+            ok = ok & (q_pos[:, None] - k_pos[None, :] < window)
+        s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + einsum(
+            "bskgt,btkd->bskgd", p.to(vb.dtype), vb, f32=True)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def update_slice(buf: torch.Tensor, val: torch.Tensor,
+                 index) -> torch.Tensor:
+    """``lax.dynamic_update_slice(buf, val, (0, index, 0, ...))`` written
+    into ``buf`` in place (the reference donates the cache).  As in JAX, a
+    negative start counts from the end, and the start is clamped so that
+    the update fits."""
+    n, start = val.shape[1], int(index)
+    if start < 0:
+        start += buf.shape[1]
+    start = min(max(start, 0), buf.shape[1] - n)
+    buf[:, start:start + n] = val.to(buf.dtype)
+    return buf
+
+
+def attention(x: torch.Tensor, p: dict, spec: AttnSpec, *,
+              pos: torch.Tensor, cache: Optional[dict] = None,
+              cache_index=None, ctx_kv: Optional[tuple] = None, mesh=None):
+    """Self- or cross-attention with optional KV cache.
+
+    x: (B, S, d).  p: {'wq','wk','wv','wo'[, 'q_norm','k_norm']}.
+    pos: (S,) absolute positions of x.
+    cache: {'k','v'} (B, T_max, K, D), or the int8 layout {'k', 'k_scale',
+    'v', 'v_scale'}: updated in place and returned.
+    ctx_kv: (k, v) precomputed cross-attention KV (overrides x-derived kv).
+    """
+    from repro_torch.models.part import constrain
+    B, S, d = x.shape
+    H, K, D = spec.n_heads, spec.n_kv, spec.d_head
+    q = einsum("bsd,dhx->bshx", x, p["wq"].reshape(d, H, D))
+    q = constrain(q, mesh, ("dp", None, "tp", None))
+    if ctx_kv is None:
+        k = einsum("bsd,dhx->bshx", x, p["wk"].reshape(d, K, D))
+        v = einsum("bsd,dhx->bshx", x, p["wv"].reshape(d, K, D))
+        k = constrain(k, mesh, ("dp", None, "tp", None))
+        v = constrain(v, mesh, ("dp", None, "tp", None))
+    else:
+        k, v = ctx_kv
+    if spec.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        if ctx_kv is None:
+            k = rms_norm(k, p["k_norm"])
+    if ctx_kv is None:
+        q = apply_rope(q, pos, spec.rope_theta)
+        k = apply_rope(k, pos, spec.rope_theta)
+
+    new_cache = cache
+    if ctx_kv is not None:
+        # cross-attention: full-context bidirectional over ctx
+        out = mha_online(q, k, v, causal=False, window=None, q_offset=0,
+                         valid_len=k.shape[1], chunk=spec.kv_chunk)
+    elif cache is None:
+        out = mha_online(q, k, v, causal=spec.causal, window=spec.window,
+                         q_offset=0, valid_len=S, chunk=spec.kv_chunk)
+    elif "k_scale" in cache:
+        # int8 KV cache: per-(token, head) block scales; dequantization
+        # happens per chunk inside the online-softmax loop
+        from repro_torch.distributed.collectives import quantize_kv_int8
+        kq, ks = quantize_kv_int8(k)
+        vq, vs = quantize_kv_int8(v)
+        new_cache = dict(
+            k=update_slice(cache["k"], kq, cache_index),
+            k_scale=update_slice(cache["k_scale"], ks, cache_index),
+            v=update_slice(cache["v"], vq, cache_index),
+            v_scale=update_slice(cache["v_scale"], vs, cache_index))
+        out = mha_online(q, (new_cache["k"], new_cache["k_scale"]),
+                         (new_cache["v"], new_cache["v_scale"]),
+                         causal=spec.causal, window=spec.window,
+                         q_offset=cache_index, valid_len=cache_index + S,
+                         chunk=spec.kv_chunk)
+    else:
+        ck = update_slice(cache["k"], k, cache_index)
+        cv = update_slice(cache["v"], v, cache_index)
+        new_cache = dict(k=ck, v=cv)
+        out = mha_online(q, ck.to(q.dtype), cv.to(q.dtype),
+                         causal=spec.causal, window=spec.window,
+                         q_offset=cache_index, valid_len=cache_index + S,
+                         chunk=spec.kv_chunk)
+    y = einsum("bshx,hxd->bsd", out, p["wo"].reshape(H, D, d))
+    return y, new_cache

@@ -1,0 +1,384 @@
+"""Unified decoder stack for all assigned architectures.
+
+Layers are organized in GROUPS so heterogeneous stacks share one
+parameter layout: the layer pattern (e.g. Llama-4's [dense, moe],
+Llama-3.2-Vision's [self x4, cross]) repeats n_layers/len(pattern) times,
+and parameters are stacked per pattern slot with a leading group axis G.
+The reference scans the groups (``lax.scan``); the port loops over them
+in Python, indexing each stacked tensor at the group.
+
+Families:
+    dense   — pre-norm GQA attention + SwiGLU (SWA / qk-norm variants)
+    moe     — attention + routed experts (moe.py), optional dense interleave
+    hybrid  — Hymba: parallel attention & SSM branches + SwiGLU
+    vlm     — decoder with cross-attention layers every k-th layer
+    audio   — Whisper: bidirectional encoder + causal decoder w/ cross-attn
+    ssm     — Mamba-2 (SSD), attention-free
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (AttnSpec, apply_rope, attention,
+                                       einsum, mha_online, rms_norm, swiglu,
+                                       update_slice)
+from repro_torch.models.part import constrain
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+
+
+# --------------------------------------------------------------------------- #
+# Layer patterns
+# --------------------------------------------------------------------------- #
+def layer_pattern(cfg: ArchConfig) -> Tuple[str, ...]:
+    if cfg.family == "dense":
+        return ("self",)
+    if cfg.family == "moe":
+        if cfg.moe_every == 2:
+            return ("self", "self_moe")
+        return ("self_moe",)
+    if cfg.family == "hybrid":
+        return ("hybrid",)
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        return tuple(["self"] * (k - 1) + ["cross"])
+    if cfg.family == "audio":
+        return ("dec",)
+    if cfg.family == "ssm":
+        return ("ssd",)
+    raise ValueError(cfg.family)
+
+
+def n_groups(cfg: ArchConfig) -> int:
+    p = layer_pattern(cfg)
+    assert cfg.n_layers % len(p) == 0, (cfg.name, cfg.n_layers, p)
+    return cfg.n_layers // len(p)
+
+
+def attn_spec(cfg: ArchConfig, *, causal=True, window=None) -> AttnSpec:
+    return AttnSpec(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.d_head,
+                    causal=causal, window=window, qk_norm=cfg.qk_norm,
+                    rope_theta=cfg.rope_theta)
+
+
+# --------------------------------------------------------------------------- #
+# Parameter init: the reference's key paths, shapes, dtypes and scales,
+# drawn in a fixed order from one torch.Generator (None on the meta device:
+# shapes only, nothing allocated)
+# --------------------------------------------------------------------------- #
+class _Init:
+    """Draws for init_params: from a torch.Generator on ``device``, from a
+    numpy Generator on the host (the same weights on every host and torch
+    version), or none on the meta device."""
+
+    def __init__(self, rng, device):
+        self.rng, self.device = rng, torch.device(device)
+
+    def lin(self, shape, scale, dtype=BF16):
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=self.device)
+        if isinstance(self.rng, np.random.Generator):
+            x = self.rng.standard_normal(shape, dtype=np.float32)
+            x = torch.from_numpy(x * np.float32(scale))
+            return x.to(dtype).to(self.device)
+        # a stacked (G, ...) leaf is drawn one group at a time, so the f32
+        # draw held beside the weights is one layer's, not the stack's
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        for part in (out if len(shape) > 2 else (out,)):
+            x = torch.randn(part.shape, generator=self.rng, dtype=F32,
+                            device=self.device)
+            part.copy_(x.mul_(scale))
+        return out
+
+    def full(self, shape, value, dtype=BF16):
+        return torch.full(shape, value, dtype=dtype, device=self.device)
+
+
+def _init_attn(ini: _Init, cfg: ArchConfig, G: int, cross=False) -> Dict:
+    d, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
+    s_in = 0.02
+    s_out = 0.02 / (2 * cfg.n_layers) ** 0.5
+    p = dict(
+        wq=ini.lin((G, d, H * Dh), s_in),
+        wk=ini.lin((G, d, K * Dh), s_in),
+        wv=ini.lin((G, d, K * Dh), s_in),
+        wo=ini.lin((G, H * Dh, d), s_out),
+    )
+    if cfg.qk_norm and not cross:
+        p["q_norm"] = ini.full((G, Dh), 1.0)
+        p["k_norm"] = ini.full((G, Dh), 1.0)
+    return p
+
+
+def _init_mlp(ini: _Init, cfg: ArchConfig, G: int, d_ff: int) -> Dict:
+    d = cfg.d_model
+    s_in = 0.02
+    s_out = 0.02 / (2 * cfg.n_layers) ** 0.5
+    return dict(w_gate=ini.lin((G, d, d_ff), s_in),
+                w_up=ini.lin((G, d, d_ff), s_in),
+                w_down=ini.lin((G, d_ff, d), s_out))
+
+
+def _init_moe(ini: _Init, cfg: ArchConfig, G: int) -> Dict:
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    s_in, s_out = 0.02, 0.02 / (2 * cfg.n_layers) ** 0.5
+    p = dict(router=ini.lin((G, d, E), s_in, F32),
+             w_gate=ini.lin((G, E, d, f), s_in),
+             w_up=ini.lin((G, E, d, f), s_in),
+             w_down=ini.lin((G, E, f, d), s_out))
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p.update(sh_gate=ini.lin((G, d, fs), s_in),
+                 sh_up=ini.lin((G, d, fs), s_in),
+                 sh_down=ini.lin((G, fs, d), s_out))
+    return p
+
+
+def _init_ssm(ini: _Init, cfg: ArchConfig, G: int) -> Dict:
+    d, d_in = cfg.d_model, cfg.d_inner
+    H, N, W = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_conv
+    e = 2 * d_in + 2 * N + H
+    s_in, s_out = 0.02, 0.02 / (2 * cfg.n_layers) ** 0.5
+    return dict(
+        in_proj=ini.lin((G, d, e), s_in),
+        conv_w=ini.lin((G, W, d_in), 0.2),
+        A_log=ini.full((G, H), 0.0, F32),
+        D=ini.full((G, H), 1.0, F32),
+        dt_bias=ini.full((G, H), 0.0, F32),
+        gate_norm=ini.full((G, d_in), 1.0),
+        out_proj=ini.lin((G, d_in, d), s_out),
+    )
+
+
+def _init_block(ini: _Init, cfg: ArchConfig, kind: str, G: int) -> Dict:
+    d = cfg.d_model
+    ones = lambda: ini.full((G, d), 1.0)
+    if kind == "self":
+        return dict(ln1=ones(), attn=_init_attn(ini, cfg, G),
+                    ln2=ones(), mlp=_init_mlp(ini, cfg, G, cfg.d_ff))
+    if kind == "self_moe":
+        return dict(ln1=ones(), attn=_init_attn(ini, cfg, G),
+                    ln2=ones(), moe=_init_moe(ini, cfg, G))
+    if kind == "cross":
+        return dict(ln1=ones(), xattn=_init_attn(ini, cfg, G, cross=True),
+                    ln2=ones(), mlp=_init_mlp(ini, cfg, G, cfg.d_ff))
+    if kind == "hybrid":
+        return dict(ln1=ones(), attn=_init_attn(ini, cfg, G),
+                    ssm=_init_ssm(ini, cfg, G),
+                    norm_attn=ones(), norm_ssm=ones(),
+                    ln2=ones(), mlp=_init_mlp(ini, cfg, G, cfg.d_ff))
+    if kind == "dec":
+        return dict(ln1=ones(), attn=_init_attn(ini, cfg, G),
+                    ln_x=ones(), xattn=_init_attn(ini, cfg, G, cross=True),
+                    ln2=ones(), mlp=_init_mlp(ini, cfg, G, cfg.d_ff))
+    if kind == "enc":
+        return dict(ln1=ones(), attn=_init_attn(ini, cfg, G),
+                    ln2=ones(), mlp=_init_mlp(ini, cfg, G, cfg.d_ff))
+    if kind == "ssd":
+        return dict(ln1=ones(), ssm=_init_ssm(ini, cfg, G))
+    raise ValueError(kind)
+
+
+def init_params(cfg: ArchConfig, rng, device) -> Dict:
+    """The parameter tree on ``device`` (``_Init`` says what ``rng`` may
+    be)."""
+    ini = _Init(rng, device)
+    pattern = layer_pattern(cfg)
+    G = n_groups(cfg)
+    params: Dict = dict(
+        embed=ini.lin((cfg.vocab, cfg.d_model), 0.02),
+        final_norm=ini.full((cfg.d_model,), 1.0),
+        blocks={f"slot{j}": _init_block(ini, cfg, kind, G)
+                for j, kind in enumerate(pattern)},
+    )
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ini.lin((cfg.d_model, cfg.vocab), 0.02)
+    if cfg.family == "audio":
+        Ge = cfg.n_enc_layers
+        params["enc_blocks"] = {"slot0": _init_block(
+            ini, cfg.replace(n_layers=Ge), "enc", Ge)}
+        params["enc_final_norm"] = ini.full((cfg.d_model,), 1.0)
+        params["enc_pos"] = ini.lin((cfg.n_ctx_tokens, cfg.d_model), 0.02)
+    return params
+
+
+# --------------------------------------------------------------------------- #
+# Block application
+# --------------------------------------------------------------------------- #
+def _apply_block(x, bp, kind: str, cfg: ArchConfig, *, pos, is_global=None,
+                 cache=None, cache_index=None, ctx=None, mesh=None):
+    """One layer.  Returns (x, new_cache, aux); aux is 0.0 for a block
+    without experts (no tensor, no launch)."""
+    aux = 0.0
+    new_cache = cache
+    x = constrain(x, mesh, ("dp", "tp", None))
+
+    if kind == "ssd":
+        h, new_cache = ssm_lib.ssd_block(rms_norm(x, bp["ln1"]), bp["ssm"],
+                                         cfg, cache, mesh=mesh)
+        return x + h, new_cache, aux
+
+    if kind == "hybrid":
+        xin = rms_norm(x, bp["ln1"])
+        window = (1 << 30) if is_global else cfg.swa_window
+        spec = attn_spec(cfg, window=None)  # window applied via valid mask
+        a_cache = None if cache is None else cache.get("attn")
+        s_cache = None if cache is None else cache.get("ssm")
+        a_out, a_cache = _windowed_attention(xin, bp["attn"], spec, window,
+                                             pos, a_cache, cache_index,
+                                             mesh=mesh)
+        s_out, s_cache = ssm_lib.ssd_block(xin, bp["ssm"], cfg, s_cache,
+                                           mesh=mesh)
+        h = 0.5 * (rms_norm(a_out, bp["norm_attn"]) +
+                   rms_norm(s_out, bp["norm_ssm"]))
+        x = x + h.to(x.dtype)
+        x = x + swiglu(rms_norm(x, bp["ln2"]), **bp["mlp"])
+        if cache is not None:
+            new_cache = dict(attn=a_cache, ssm=s_cache)
+        return x, new_cache, aux
+
+    # attention part (self / cross / dec)
+    if kind in ("self", "self_moe", "enc"):
+        spec = attn_spec(cfg, causal=kind != "enc", window=cfg.swa_window)
+        h, new_cache = attention(rms_norm(x, bp["ln1"]), bp["attn"], spec,
+                                 pos=pos, cache=cache,
+                                 cache_index=cache_index, mesh=mesh)
+        x = x + h
+    elif kind == "cross":
+        spec = attn_spec(cfg, causal=False)
+        kx, vx = _ctx_kv(ctx, bp["xattn"], cfg)
+        h, _ = attention(rms_norm(x, bp["ln1"]), bp["xattn"], spec, pos=pos,
+                         ctx_kv=(kx, vx), mesh=mesh)
+        x = x + h
+    elif kind == "dec":
+        spec = attn_spec(cfg, causal=True)
+        h, new_cache = attention(rms_norm(x, bp["ln1"]), bp["attn"], spec,
+                                 pos=pos, cache=cache,
+                                 cache_index=cache_index, mesh=mesh)
+        x = x + h
+        kx, vx = _ctx_kv(ctx, bp["xattn"], cfg)
+        hx, _ = attention(rms_norm(x, bp["ln_x"]), bp["xattn"],
+                          attn_spec(cfg, causal=False), pos=pos,
+                          ctx_kv=(kx, vx), mesh=mesh)
+        x = x + hx
+    else:
+        raise ValueError(kind)
+
+    # FFN part
+    if kind == "self_moe":
+        h, aux = moe_lib.moe_ffn(rms_norm(x, bp["ln2"]), bp["moe"], cfg,
+                                 mesh=mesh)
+        x = x + h
+    else:
+        x = x + swiglu(rms_norm(x, bp["ln2"]), **bp["mlp"])
+    return x, new_cache, aux
+
+
+def _ctx_kv(ctx, p, cfg: ArchConfig):
+    """Cross-attention keys and values of the context (B, Tc, d)."""
+    shape = (cfg.d_model, cfg.n_kv, cfg.d_head)
+    return (einsum("btd,dhx->bthx", ctx, p["wk"].reshape(shape)),
+            einsum("btd,dhx->bthx", ctx, p["wv"].reshape(shape)))
+
+
+def _windowed_attention(x, p, spec: AttnSpec, window, pos, cache,
+                        cache_index, mesh=None):
+    """Attention with a per-layer window bound (hybrid stacks mix SWA and
+    global layers in one stack), applied as a clip on key positions inside
+    the online softmax."""
+    B, S, d = x.shape
+    H, K, D = spec.n_heads, spec.n_kv, spec.d_head
+    q = einsum("bsd,dhx->bshx", x, p["wq"].reshape(d, H, D))
+    k = einsum("bsd,dhx->bshx", x, p["wk"].reshape(d, K, D))
+    v = einsum("bsd,dhx->bshx", x, p["wv"].reshape(d, K, D))
+    q = constrain(q, mesh, ("dp", None, "tp", None))
+    q = apply_rope(q, pos, spec.rope_theta)
+    k = apply_rope(k, pos, spec.rope_theta)
+    new_cache = cache
+    if cache is None:
+        out = _mha_dyn_window(q, k, v, window, q_offset=0, valid_len=S,
+                              chunk=spec.kv_chunk)
+    else:
+        ck = update_slice(cache["k"], k, cache_index)
+        cv = update_slice(cache["v"], v, cache_index)
+        new_cache = dict(k=ck, v=cv)
+        out = _mha_dyn_window(q, ck.to(q.dtype), cv.to(q.dtype), window,
+                              q_offset=cache_index,
+                              valid_len=cache_index + S, chunk=spec.kv_chunk)
+    y = einsum("bshx,hxd->bsd", out, p["wo"].reshape(H, D, d))
+    return y, new_cache
+
+
+def _mha_dyn_window(q, k, v, window, *, q_offset, valid_len, chunk):
+    """The reference's mha_online with a traced window size: causal, with
+    the window clip, in mha_online's order of operations — which is
+    ``mha_online`` itself here, where a window is a plain int."""
+    return mha_online(q, k, v, causal=True, window=window,
+                      q_offset=q_offset, valid_len=valid_len, chunk=chunk)
+
+
+# --------------------------------------------------------------------------- #
+# Stack forward (a loop over groups)
+# --------------------------------------------------------------------------- #
+def _group_extras(cfg: ArchConfig) -> Dict[str, List[List[bool]]]:
+    """Per-group extras (e.g. hybrid global-layer flags, (G, len(pattern)))."""
+    pattern = layer_pattern(cfg)
+    G = n_groups(cfg)
+    if cfg.family == "hybrid":
+        flags = [[False] * len(pattern) for _ in range(G)]
+        for g in cfg.global_layers:
+            gi, si = divmod(g, len(pattern))
+            flags[gi][si] = True
+        return dict(is_global=flags)
+    return {}
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _at(tree, g: int):
+    """The group-g slice of a stacked tree (views: in-place cache writes
+    land in the stacked tensors)."""
+    if isinstance(tree, dict):
+        return {k: _at(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
+              cache_index=None, ctx=None, remat=True,
+              blocks_key="blocks", mesh=None):
+    """Run the layer groups in order.  Returns (x, new_cache, aux_sum).
+
+    The cache is updated in place (the reference donates it), so
+    ``new_cache`` is ``cache``.  ``remat`` is the reference's
+    rematerialisation switch, which changes no value; the port computes no
+    gradient, so it has nothing to do."""
+    pattern = (("enc",) if blocks_key == "enc_blocks"
+               else layer_pattern(cfg))
+    extras = _group_extras(cfg) if blocks_key == "blocks" else {}
+    G = _first_leaf(blocks).shape[0]
+    aux = 0.0
+    for g in range(G):
+        gp = _at(blocks, g)
+        gc = None if cache is None else _at(cache, g)
+        for j, kind in enumerate(pattern):
+            slot = f"slot{j}"
+            c_j = None if gc is None else gc.get(slot)
+            ig = extras["is_global"][g][j] if extras else None
+            x, _, a = _apply_block(
+                x, gp[slot], kind, cfg, pos=pos, is_global=ig, cache=c_j,
+                cache_index=cache_index, ctx=ctx, mesh=mesh)
+            aux = aux + a
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=F32, device=x.device)
+    return x, cache, aux

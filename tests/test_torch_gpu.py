@@ -19,7 +19,12 @@ ladder's shapes, ``ServeDriver``'s kernels plan against its reference
 plan) and the tiered index (``Mapper(backend="tiered")`` against the
 resident kernels plan, a slot evicted while the chunk that reads it is
 still queued, back-to-back page-ins from pinned host tiles).
-Tolerance: exact.
+Tolerance: exact.  Last, the LM scaffold's serving path, which is plain
+torch (no hand-written kernel may launch): the launcher at qwen3-4b's full
+width, and the card against the port on the CPU at full width with 2
+layers and for the ten reduced configs, those also against the JAX
+package's logits, within the family tolerances of
+``src/repro_torch/models/jax_lm_golden.json``.
 
 Marked ``gpu``; every test decides inside itself whether a card exists and
 skips without one:
@@ -33,6 +38,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from repro_torch.configs import ARCHS as LM_ARCHS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1207,3 +1214,93 @@ def test_bench_deterministic_fields_equal_jax_golden(bench_quick_profile):
                          / "jax_microbench.json").read_text())["quick"]
     golden["workload"]["repeats"] = 1
     assert mb.deterministic_mismatches(bench_quick_profile, golden) == []
+
+
+# --------------------------------------------------------------------------- #
+# The LM scaffold's serving path: plain torch on the card (no hand-written
+# kernel may launch), held against the port on the CPU and the JAX
+# package's logits (src/repro_torch/models/jax_lm_golden.json) within the
+# family tolerances the golden states
+# --------------------------------------------------------------------------- #
+def _lm_card_vs_cpu(cfg, params_cpu, tokens, ctx):
+    from repro_torch.models import golden as G
+    from repro_torch.models import model as M
+    dev = _card()
+    t = torch.as_tensor(tokens)
+    c = None if ctx is None else torch.as_tensor(ctx)
+    card = G.outputs(M.tree_map(lambda x: x.to(dev), params_cpu), cfg,
+                     t.to(dev), None if c is None else c.to(dev))
+    host = G.outputs(params_cpu, cfg, t, c)
+    gold = G.load()
+    for k, v in G.deviations(card, host).items():
+        limit = (gold["nll_tol"] if k in ("nll", "aux")
+                 else gold["tolerance"][cfg.family])
+        assert v <= limit, (cfg.name, k, v)
+        assert torch.isfinite(card[k]).all(), (cfg.name, k)
+    return card, gold
+
+
+def test_lm_launcher_at_full_width_on_the_card(capsys):
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import kernels as K
+    from repro_torch.launch import serve
+    from repro_torch.models import golden as G
+    from repro_torch.models import model as M
+    K.reset_launches()
+    res = serve.run(serve.parse_args(["--arch", "qwen3-4b", "--batch", "2",
+                                      "--prompt-len", "16", "--gen", "4"]))
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "arch=qwen3-4b batch=2 prompt=16 gen=4"
+    assert len(lines) == 4 and lines[3].startswith("sample tokens:")
+    assert res["tokens"].shape == (2, 4)
+    leaves = list(M.flatten(res["params"]).values())
+    assert all(t.device == dev for t in leaves)
+    assert (sum(t.numel() for t in leaves) == M.param_count(res["cfg"])
+            == G.load()["full"]["qwen3-4b"]["param_count"] == 4_411_424_256)
+    # the JAX package's own property at full width, at its bound
+    params, cfg = res["params"], res["cfg"]
+    tok = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (1, 17)), dtype=torch.int32, device=dev)
+    want = M.forward(params, tok, cfg)[0][:, -1]
+    cache = M.init_cache(cfg, 1, 24, device=dev)
+    _, cache = M.prefill(params, tok[:, :16], cfg, cache=cache)
+    got, _ = M.decode_step(params, tok[:, 16:], cfg, cache=cache,
+                           cache_index=16)
+    torch.testing.assert_close(got, want, rtol=5e-2, atol=5e-2)
+    assert all(v == 0 for v in K.LAUNCHES.values()), dict(K.LAUNCHES)
+
+
+def test_lm_card_equals_cpu_at_full_width_cut_depth():
+    """qwen3-4b at full width and vocab with 2 layers (1.2e9 parameters),
+    the weights drawn on the card and copied to the CPU."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("qwen3-4b").replace(n_layers=2)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(1), dev)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (2, 17))
+    _lm_card_vs_cpu(cfg, M.tree_map(lambda t: t.cpu(), params),
+                    tokens.astype(np.int32), None)
+
+
+@pytest.mark.parametrize("arch", sorted(LM_ARCHS))
+def test_lm_reduced_card_equals_cpu_and_jax_golden(arch):
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import golden as G
+    from repro_torch.models import model as M
+    cfg = get_config(arch).reduced()
+    gold = G.load()
+    K.reset_launches()
+    tokens, ctx = G.inputs(cfg, gold)
+    card, _ = _lm_card_vs_cpu(cfg, M.seeded_params(cfg, gold["weights_seed"],
+                                                   "cpu"), tokens, ctx)
+    err = G.rel_err(G.digest(card["logits"], gold), gold["reduced"][arch])
+    assert err <= gold["tolerance"][cfg.family], err
+    assert all(v == 0 for v in K.LAUNCHES.values()), dict(K.LAUNCHES)

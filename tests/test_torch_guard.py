@@ -263,3 +263,24 @@ def test_cpu_tensors_take_the_plain_versions():
                            MarsConfig(chain_band=8))
     assert f.shape == d.shape == (1, 8)
     assert all(v == 0 for v in K.LAUNCHES.values())
+
+
+def test_lm_serving_defaults_to_cuda_and_raises_without_it(no_cuda):
+    """The LM launcher (``repro_torch.launch.serve``, under the import
+    guard above) and the model's allocating entry points run on the card
+    unless given the CPU: without a card they raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    assert PORT / "launch" / "serve.py" in _port_files()
+    assert PORT / "models" / "transformer.py" in _port_files()
+    cfg = get_config("qwen3-4b").reduced()
+    for call in (lambda: serve.main(["--arch", "qwen3-4b", "--reduced"]),
+                 lambda: M.init_params(cfg, None),
+                 lambda: M.init_cache(cfg, 1, 8),
+                 lambda: M.seeded_params(cfg, 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    toks = serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+                       "--batch", "1", "--prompt-len", "4", "--gen", "2"])
+    assert toks.shape == (1, 2)
