@@ -193,13 +193,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                reduced configs, those also against the JAX package's
                logits (``src/repro_torch/models/jax_lm_golden.json``),
                within the family tolerances the golden states;
-12. summary  — one JSON line of per-kernel results, then the last line
+12. train    — the LM scaffold's training path (``repro_torch.train``,
+               ``repro_torch.launch.train``), which launches no
+               hand-written kernel either (every count zeroed at the start
+               of the phase must read 0 at its end): qwen3-4b and
+               mamba2-780m at full width through the launcher (batch 8,
+               seq 128, 5 steps: one to warm up, four timed; no
+               checkpoint), the parameters on the card adding up to their
+               counts and every loss finite; ms a step and tok/s against
+               the step's bound (6 N tokens over 989 TFLOP/s plus 22 bytes
+               a parameter over 3.35 TB/s), peak memory, and one profiled
+               step's kernel launches and busy share; the ten reduced
+               configs' train step on the card against the port on the CPU
+               (``train.golden.step_deviations``: loss, per-leaf gradients,
+               grad norm, updated parameters and moments, each within its
+               bound), the optimizer on the card from the CPU's gradients
+               equal to the CPU's bit for bit, and three steps on the card
+               against the JAX package's (``jax_train_golden.json``); a
+               reduced qwen3-4b run of 8 steps and a second process resumed
+               from its step-4 checkpoint, under deterministic algorithms,
+               equal leaf for leaf (sha256);
+13. summary  — one JSON line of per-kernel results, then the last line
                ``{"ok": true, "device": {...}}``.  Every log line also goes
                to ``chiprun_out/chip_smoke.log``.
 
 ``python3 chip_smoke.py --sharded-only`` runs phases 1-2, the datasets and
 phase 8 alone (the NCCL run too on a host of several cards), records them
-in ``chiprun_out/chip_smoke_sharded.json`` and prints no result line.
+in ``chiprun_out/chip_smoke_sharded.json`` and prints no result line;
+``--train-only`` runs phases 1 and 12 alone into
+``chiprun_out/chip_smoke_train.json``, with no result line either.
 
 It imports neither JAX nor the JAX package.
 """
@@ -3163,6 +3185,249 @@ def phase_lm(smi):
                 reduced=reduced, launches=dict(K.LAUNCHES), seconds=seconds)
 
 
+# The LM scaffold's training path (``train`` phase): full width through
+# the launcher at the JAX launcher's defaults (batch 8, seq 128): one step
+# to warm up, four timed
+LM_TRAIN = (("qwen3-4b", 4_411_424_256), ("mamba2-780m", 857_170_176))
+TRAIN_ARGV = ["--batch", "8", "--seq", "128", "--steps", "5",
+              "--log-every", "1"]
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 (NVIDIA data sheet)
+ADAMW_BYTES_PER_PARAM = 22      # bf16 p r/w, bf16 g r, f32 m and v r/w
+
+
+def lm_train(arch: str, n_params: int, smi: str) -> dict:
+    """``repro_torch.launch.train`` at full width, batch 8, seq 128, 5
+    steps (the first warms up): ms a step and tok/s over the last 4, peak
+    memory, the step's bound (6 N tokens over the dense bf16 peak, plus
+    the optimizer's 22 bytes a parameter over 3.35 TB/s); the parameters
+    on the card must add up to ``n_params`` and every loss be finite.
+    Then one more step under torch.profiler: kernel launches and the
+    device's busy share."""
+    import torch
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.train import golden as TG
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = train.parse_args(["--arch", arch, *TRAIN_ARGV])
+    res = train.run(args)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params, state = res["cfg"], res["params"], res["opt_state"]
+    leaves = list(M.flatten(params).values())
+    on_card = sum(t.numel() for t in leaves)
+    if not (on_card == n_params == M.param_count(cfg)):
+        raise AssertionError(f"train {arch}: {on_card} parameters on the "
+                             f"card, {n_params} expected")
+    if any(t.device.type != "cuda" for t in leaves + O.tree_leaves(state)):
+        raise AssertionError(f"train {arch}: a leaf is off the card")
+    losses = [h["loss"] for h in res["history"]]
+    if len(losses) != 5 or not np.isfinite(losses).all():
+        raise AssertionError(f"train {arch}: losses {losses}")
+    tokens = args.batch * args.seq
+    step_s = float(np.mean(res["times"][1:]))
+    flops_ms = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+    opt_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    # one more step, profiled
+    adamw = O.AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 2),
+                          total_steps=args.steps)
+    step, _, _ = S.make_train_step(cfg, None, adamw)
+    stream = TokenStream(cfg.vocab, args.batch, args.seq, seed=1)
+    batch = S.device_batch(stream.next_batch(), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    busy, by_kernel = device_busy(prof, f"trace_train_{arch}.json.gz")
+    launches = sum(n for n, _ in by_kernel.values())
+    out = dict(
+        arch=arch, params=on_card, losses=losses,
+        grad_norms=[h["grad_norm"] for h in res["history"]],
+        step_times_s=res["times"], ms_per_step=step_s * 1e3,
+        tok_s=tokens / step_s, bound_ms=flops_ms + opt_ms,
+        bound_flops_ms=flops_ms, bound_optimizer_ms=opt_ms,
+        max_memory_allocated=peak, profiled_wall_ms=wall * 1e3,
+        profiled_busy_ms=busy * 1e3, busy_share=busy / wall,
+        launches=launches,
+        top_kernels=sorted(((k, n, us) for k, (n, us) in by_kernel.items()),
+                           key=lambda r: -r[2])[:8])
+    log(f"[train] {arch} full width ({on_card:,} parameters), batch "
+        f"{args.batch}, seq {args.seq}: {out['ms_per_step']:.3f} ms a step "
+        f"({out['tok_s']:.1f} "
+        f"tok/s) over steps 2-5 against a bound of {out['bound_ms']:.3f} ms "
+        f"({flops_ms:.3f} ms of 6 N tokens at 989 TFLOP/s + {opt_ms:.3f} ms "
+        f"of 22 B a parameter at 3.35 TB/s); losses "
+        f"{[round(x, 4) for x in losses]}; peak memory "
+        f"{peak / 2**30:.3f} GiB ({peak / 1e9:.3f} GB); one profiled step: "
+        f"{launches} kernel launches, wall {wall * 1e3:.3f} ms, device busy "
+        f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%); {smi}")
+    for name, n, us in out["top_kernels"][:6]:
+        log(f"[train]   device {us / 1e3:8.3f} ms  x{n:<5} {name[:90]}")
+    del params, state, res
+    return out
+
+
+def train_card_vs_cpu(arch: str, gold: dict, smi: str) -> dict:
+    """One train step on the card against the port on the CPU from the
+    golden's weights and first batch (``train.golden.step_deviations``,
+    each measure over its bound), the optimizer on the card against the
+    CPU given the CPU's gradients (bit for bit), then the golden's steps
+    on the card against the JAX package's (``jax_train_golden.json``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import golden as TG
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+    cfg = get_config(arch).reduced()
+    adamw = O.AdamWConfig(**gold["adamw"])
+    p_cpu = M.seeded_params(cfg, gold["weights_seed"], "cpu")
+    p_dev = M.tree_map(lambda t: t.to("cuda"), p_cpu)
+    batches = TG.batches(cfg, gold)
+    host = TG.step_outputs(p_cpu, S.device_batch(batches[0], "cpu"), cfg,
+                           adamw)
+    card = TG.step_outputs(p_dev, S.device_batch(batches[0], "cuda"), cfg,
+                           adamw)
+    dev = TG.step_deviations(card, host, cfg.family, gold)
+    if not all(v <= 1.0 for v in dev.values()):
+        raise AssertionError(f"train {arch}-reduced: card against CPU "
+                             f"{sorted(dev.items())} (over each bound)")
+    # the optimizer alone, from the CPU's gradients: equal bit for bit
+    g_dev = M.unflatten({k: v.to("cuda") for k, v in host["grads"].items()})
+    new_p, st, m = O.update(adamw, p_dev, g_dev, O.init_state(p_dev))
+    for name, tree in (("params", new_p), ("m", st.m), ("v", st.v)):
+        for k, v in M.flatten(tree).items():
+            assert_equal(f"train {arch} optimizer {name} {k}", v.cpu(),
+                         host[name][k])
+    if float(m["grad_norm"]) != host["grad_norm"]:
+        raise AssertionError(f"train {arch}: grad norm card "
+                             f"{float(m['grad_norm'])} CPU "
+                             f"{host['grad_norm']}")
+    # the golden's steps on the card
+    want = gold["reduced"][arch]
+    tol = gold["grad_tol"][cfg.family]
+    norms = TG.leaf_norms(card["grads"])
+    leaf = max(abs(norms[k] - w) / w for k, w in
+               want["leaf_grad_norms"].items() if w)
+    step, _, _ = S.make_train_step(cfg, None, adamw)
+    state = O.init_state(p_dev)
+    got = dict(loss=[], grad_norm=[], lr=[])
+    for b in batches:
+        p_dev, state, mt = step(p_dev, state, S.device_batch(b, "cuda"))
+        for k in got:
+            got[k].append(float(mt[k]))
+    d_loss = max(abs(a - b) for a, b in zip(got["loss"], want["loss"]))
+    d_norm = max(abs(a - b) / b for a, b in zip(got["grad_norm"],
+                                                 want["grad_norm"]))
+    if not (got["lr"] == want["lr"] and d_loss <= gold["loss_tol"]
+            and d_norm <= gold["grad_norm_tol"] and leaf <= tol):
+        raise AssertionError(f"train {arch}-reduced: card against the JAX "
+                             f"golden: loss {d_loss}, grad norm {d_norm}, "
+                             f"leaf grad norms {leaf}, lr {got['lr']} vs "
+                             f"{want['lr']}")
+    log(f"[train] {arch}-reduced: card against CPU (of each bound) loss "
+        f"{dev['loss']:.3f}, grads {dev['grads']:.3f}, grad norm "
+        f"{dev['grad_norm']:.3f}, m {dev['m']:.3f}, v {dev['v']:.3f}, params "
+        f"{dev['params']:.3f}; optimizer from the CPU's gradients equal bit "
+        f"for bit; against the JAX golden over {gold['steps']} steps: "
+        f"|Δloss| {d_loss:.2e} (<= {gold['loss_tol']}), grad norm "
+        f"{d_norm:.2e} (<= {gold['grad_norm_tol']}), leaf grad norms "
+        f"{leaf:.4f} (<= {tol}), lr equal")
+    return dict(card_vs_cpu=dev, jax_loss=d_loss, jax_grad_norm=d_norm,
+                jax_leaf_norms=leaf)
+
+
+def train_resume(smi: str) -> dict:
+    """Reduced qwen3-4b through the launcher, 8 steps saving every 4, in a
+    process of its own under ``torch.use_deterministic_algorithms(True)``;
+    a second process resumes from a copy of its step-4 checkpoint.  Every
+    leaf of the two step-8 checkpoints must be equal (sha256), the token
+    stream's state too."""
+    import shutil
+    work = ROOT / "build" / "train_resume"
+    shutil.rmtree(work, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    code = ("import sys, torch; torch.use_deterministic_algorithms(True); "
+            "from repro_torch.launch import train; train.main(sys.argv[1:])")
+    argv = ["--arch", "qwen3-4b", "--reduced", "--steps", "8",
+            "--save-every", "4", "--log-every", "4"]
+
+    def launch(d):
+        r = subprocess.run([sys.executable, "-c", code, *argv, "--ckpt-dir",
+                            str(d)], env=env, capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode:
+            raise AssertionError(f"train resume: exit {r.returncode}\n"
+                                 f"{r.stdout}\n{r.stderr[-4000:]}")
+        return r.stdout
+
+    t0 = time.time()
+    whole = launch(work / "whole")
+    (work / "resumed").mkdir(parents=True)
+    shutil.copytree(work / "whole" / "step_000000004",
+                    work / "resumed" / "step_000000004")
+    resumed = launch(work / "resumed")
+    if "resumed from step 4" not in resumed:
+        raise AssertionError(f"train resume: {resumed}")
+    manifests = [json.loads((work / d / "step_000000008" / "manifest.json")
+                            .read_text()) for d in ("whole", "resumed")]
+    digests = [{e["path"]: e["sha256"] for e in m["leaves"]}
+               for m in manifests]
+    differ = [k for k in digests[0] if digests[0][k] != digests[1][k]]
+    if differ or manifests[0]["data_state"] != manifests[1]["data_state"]:
+        raise AssertionError(f"train resume: {len(differ)} of "
+                             f"{len(digests[0])} leaves differ ({differ[:4]})"
+                             f", data states {manifests[0]['data_state']} "
+                             f"{manifests[1]['data_state']}")
+    seconds = time.time() - t0
+    log(f"[train] qwen3-4b-reduced resume: 8 steps in one process, steps "
+        f"5-8 again in a second from its step-4 checkpoint, deterministic "
+        f"algorithms: all {len(digests[0])} leaves of step 8 equal (sha256); "
+        f"final lines {whole.splitlines()[-1]!r} / "
+        f"{resumed.splitlines()[-1]!r}; {seconds:.1f} s; {smi}")
+    return dict(leaves=len(digests[0]), equal=True, seconds=seconds,
+                final_line=whole.splitlines()[-1])
+
+
+def phase_train(smi):
+    """The LM scaffold's training path, which launches no hand-written
+    kernel (its launch counts must all read 0): qwen3-4b and mamba2-780m at
+    full width through ``repro_torch.launch.train``; the ten reduced
+    configs' train step on the card against the port on the CPU and the
+    JAX package's golden (``jax_train_golden.json``); a resumed run
+    against an uninterrupted one."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import ARCHS
+    from repro_torch.train import golden as TG
+    t0 = time.time()
+    K.reset_launches()
+    full = {}
+    for arch, n_params in LM_TRAIN:
+        full[arch] = lm_train(arch, n_params, smi)
+        torch.cuda.empty_cache()
+    gold = TG.load()
+    reduced = {a: train_card_vs_cpu(a, gold, smi) for a in sorted(ARCHS)}
+    resume = train_resume(smi)
+    launched = {k: v for k, v in K.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"train: hand-written kernels launched "
+                             f"{launched}")
+    seconds = time.time() - t0
+    log(f"[train] no hand-written kernel launched (all {len(K.LAUNCHES)} "
+        f"counts 0); phase {seconds:.1f} s")
+    return dict(full=full, reduced=reduced, resume=resume,
+                launches=dict(K.LAUNCHES), seconds=seconds)
+
+
 def main() -> int:
     try:
         return run()
@@ -3198,6 +3463,16 @@ def run() -> int:
         return out
 
     name, smi = timed("device", phase_device)
+    if "--train-only" in sys.argv[1:]:
+        # the training phase alone; no kernels line and no result line
+        train_ = timed("train", phase_train, smi)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_train.json").write_text(json.dumps(
+            dict(device=name, nvidia_smi=smi, train=train_,
+                 phase_seconds=seconds), indent=1, default=str))
+        log(smi)
+        return 0
     build_record = timed("build", phase_build)
     data = timed("datasets", lambda: {k: make_dataset(k)
                                       for k in ("D1", "D5")})
@@ -3242,6 +3517,7 @@ def run() -> int:
     paper = timed("paper", phase_paper, dev)
     bench = timed("bench", phase_bench, dev, smi)
     lm = timed("lm", phase_lm, smi)
+    train_ = timed("train", phase_train, smi)
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)
@@ -3308,7 +3584,7 @@ def run() -> int:
              tiered=tiered_,
              launcher=launcher,
              routes=routes, serve=serve, sharded=sharded, paper=paper,
-             bench=bench, lm=lm,
+             bench=bench, lm=lm, train=train_,
              phase_seconds=seconds,
              seconds=time.time() - t_all),
         indent=1,
@@ -3355,6 +3631,12 @@ def run() -> int:
             "decode_bound_ms", "step_launches", "step_busy_share",
             "max_memory_allocated")} for a, r in lm["serve"].items()},
         seconds=lm["seconds"])))
+    log("[train-summary] " + json.dumps(dict(
+        card=smi, full={a: {k: r[k] for k in (
+            "ms_per_step", "tok_s", "bound_ms", "max_memory_allocated",
+            "launches", "busy_share")} for a, r in train_["full"].items()},
+        resume_equal=train_["resume"]["equal"],
+        seconds=train_["seconds"])))
     log(f"[seconds] {time.time() - t_all:.1f}")
     log(smi)
     print(json.dumps({"kernels": summary}))

@@ -112,8 +112,8 @@ def load_numpy_params(cfg: ArchConfig, tree: Dict, device) -> Dict:
 class LM(nn.Module):
     """A parameter tree as an ``nn.Module``: ``state_dict`` keys are the
     tree's paths (``blocks.slot0.attn.wq``), with the reference's shapes
-    stacked over groups; ``params`` gives the tree back for the functions
-    of this module."""
+    stacked over groups, each a leaf that requires a gradient; ``params``
+    gives the tree back for the functions of this module."""
 
     def __init__(self, cfg: ArchConfig, params: Dict):
         super().__init__()
@@ -135,7 +135,7 @@ def _register(module: nn.Module, tree: Dict) -> None:
             _register(child, v)
             module.add_module(k, child)
         else:
-            module.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            module.register_parameter(k, nn.Parameter(v))
 
 
 def _tree(module: nn.Module) -> Dict:
@@ -195,7 +195,7 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int,
 # Forward passes
 # --------------------------------------------------------------------------- #
 def _encode_ctx(params: Dict, cfg: ArchConfig, ctx: torch.Tensor,
-                mesh=None):
+                mesh=None, remat: bool = True):
     """Audio: run the stub frame embeddings through the encoder stack."""
     if cfg.family != "audio":
         return ctx
@@ -203,7 +203,7 @@ def _encode_ctx(params: Dict, cfg: ArchConfig, ctx: torch.Tensor,
     x = ctx.to(BF16) + params["enc_pos"][None, :Tc, :]
     pos = torch.arange(Tc, device=x.device)
     x, _, _ = T.run_stack(params["enc_blocks"], x, cfg, pos=pos,
-                          blocks_key="enc_blocks", mesh=mesh)
+                          blocks_key="enc_blocks", remat=remat, mesh=mesh)
     return rms_norm(x, params["enc_final_norm"])
 
 
@@ -225,7 +225,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     else:
         cache_index = int(cache_index)
         pos = cache_index + torch.arange(S, device=x.device)
-    enc = _encode_ctx(params, cfg, ctx, mesh=mesh) if ctx is not None else None
+    enc = (_encode_ctx(params, cfg, ctx, mesh=mesh, remat=remat)
+           if ctx is not None else None)
     x, new_cache, aux = T.run_stack(params["blocks"], x, cfg, pos=pos,
                                     cache=cache, cache_index=cache_index,
                                     ctx=enc, remat=remat, mesh=mesh)
@@ -240,11 +241,14 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig,
-            aux_weight: float = 0.01, mesh=None) -> Tuple[torch.Tensor, Dict]:
-    """batch: {'tokens' (B,S), 'labels' (B,S)[, 'ctx' (B,Tc,d)]}.  The
-    value only: the gradient comes with the training slice."""
+            aux_weight: float = 0.01, mesh=None,
+            remat: bool = True) -> Tuple[torch.Tensor, Dict]:
+    """batch: {'tokens' (B,S), 'labels' (B,S)[, 'ctx' (B,Tc,d)]}.
+    Returns (loss, {'nll', 'aux'}); differentiable in the parameters
+    (``value_and_grad``), the layer groups rematerialised in the backward
+    pass (``transformer.run_stack``)."""
     logits, _, aux = forward(params, batch["tokens"], cfg,
-                             ctx=batch.get("ctx"), mesh=mesh)
+                             ctx=batch.get("ctx"), remat=remat, mesh=mesh)
     labels = batch["labels"]
     logz = torch.logsumexp(logits, dim=-1)
     # the reference contracts with a one-hot (for sharding); the gathered
@@ -253,6 +257,23 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig,
     nll = (logz - gold).mean()
     loss = nll + aux_weight * aux
     return loss, dict(nll=nll, aux=aux)
+
+
+def value_and_grad(params: Dict, batch: Dict, cfg: ArchConfig, mesh=None,
+                   remat: bool = True
+                   ) -> Tuple[Tuple[torch.Tensor, Dict], Dict]:
+    """``jax.value_and_grad(loss_fn, has_aux=True)``: ((loss, parts),
+    grads), the gradients a tree like ``params`` (each leaf's dtype), by
+    autograd through ``loss_fn`` on leaves detached from ``params``."""
+    flat = flatten(params)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+    with torch.enable_grad():
+        loss, parts = loss_fn(unflatten(leaves), batch, cfg, mesh=mesh,
+                              remat=remat)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True, materialize_grads=True)
+    parts = {k: v.detach() for k, v in parts.items()}
+    return (loss.detach(), parts), unflatten(dict(zip(leaves, grads)))
 
 
 def prefill(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,

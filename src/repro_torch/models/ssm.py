@@ -70,8 +70,13 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (nc,B,Qi,Qj,H)
     iq = torch.arange(Q, device=xh.device)
     causal = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
-    # the decay mask in bf16, as the reference keeps it
-    L = torch.where(causal, torch.exp(seg), 0.0).to(BF16)
+    # the decay mask in bf16, as the reference keeps it.  The reference
+    # takes exp(seg) everywhere and then masks it; above the diagonal seg
+    # is a positive sum that overflows past ~88 (a long chunk), and the
+    # mask's gradient, 0 * inf, is NaN there: the reference's gradient is
+    # NaN from seq 128 on.  Masking before the exp gives the same values
+    # (exp(-inf) = 0) and a finite gradient.
+    L = torch.exp(torch.where(causal, seg, float("-inf"))).to(BF16)
 
     # intra-chunk: y_intra[i] = sum_j (C_i . B_j) L_ij x_dt[j]
     G = einsum("cbin,cbjn->cbij", C_c, B_c, f32=True).to(BF16)

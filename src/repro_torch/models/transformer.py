@@ -21,6 +21,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_lib
@@ -354,6 +355,17 @@ def _at(tree, g: int):
     return tree[g]
 
 
+def _unbind(tree, G: int) -> List:
+    """The G group slices of a stacked parameter tree, each leaf split once
+    (``torch.unbind``: its gradient is one stack of the G slices' grads,
+    where G separate ``tree[g]`` would each scatter into a full-size
+    zero tensor)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, G) for k, v in tree.items()}
+        return [{k: per_key[k][g] for k in tree} for g in range(G)]
+    return list(torch.unbind(tree, 0))
+
+
 def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
               cache_index=None, ctx=None, remat=True,
               blocks_key="blocks", mesh=None):
@@ -361,16 +373,18 @@ def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
 
     The cache is updated in place (the reference donates it), so
     ``new_cache`` is ``cache``.  ``remat`` is the reference's
-    rematerialisation switch, which changes no value; the port computes no
-    gradient, so it has nothing to do."""
+    ``jax.checkpoint`` over each group: when autograd records the forward
+    (no cache), each group runs under ``torch.utils.checkpoint`` and its
+    activations are recomputed in the backward pass instead of kept; the
+    values are the same either way."""
     pattern = (("enc",) if blocks_key == "enc_blocks"
                else layer_pattern(cfg))
     extras = _group_extras(cfg) if blocks_key == "blocks" else {}
     G = _first_leaf(blocks).shape[0]
-    aux = 0.0
-    for g in range(G):
-        gp = _at(blocks, g)
-        gc = None if cache is None else _at(cache, g)
+    checkpointed = remat and cache is None and torch.is_grad_enabled()
+
+    def group(x, gp, gc, g):
+        aux = 0.0
         for j, kind in enumerate(pattern):
             slot = f"slot{j}"
             c_j = None if gc is None else gc.get(slot)
@@ -379,6 +393,18 @@ def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
                 x, gp[slot], kind, cfg, pos=pos, is_global=ig, cache=c_j,
                 cache_index=cache_index, ctx=ctx, mesh=mesh)
             aux = aux + a
+        return x, aux
+
+    groups = _unbind(blocks, G)
+    aux = 0.0
+    for g in range(G):
+        gc = None if cache is None else _at(cache, g)
+        if checkpointed:
+            x, a = torch.utils.checkpoint.checkpoint(
+                group, x, groups[g], gc, g, use_reentrant=False)
+        else:
+            x, a = group(x, groups[g], gc, g)
+        aux = aux + a
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=F32, device=x.device)
     return x, cache, aux

@@ -1,2 +1,2 @@
-"""Step factories of the LM substrate (the serving half: prefill and decode
-steps)."""
+"""The LM substrate's training and step factories: AdamW, the train,
+prefill and decode steps, checkpoints, the step monitor."""

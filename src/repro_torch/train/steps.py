@@ -1,12 +1,13 @@
-"""Step factories of the LM serving path: prefill and decode steps.
+"""Step factories of the LM: the train step, and the prefill and decode
+steps of serving.
 
 The reference's factories return ``(step, jit_for, shardings)``, where
 ``jit_for(batch_abstract)`` jits the step with sharded in/out specs and
-donates the cache.  Here the LM runs on one device: ``jit_for`` checks the
-batch stand-ins against the factory's batch and returns the step, the
-cache is updated in place (the donation), and the third item holds the
-parameter and cache trees on the meta device.  A mesh of several devices
-raises (``part.check_mesh``).  The training step is the training slice's.
+donates the cache (and, training, the parameters and optimizer state).
+Here the LM runs on one device: ``jit_for`` checks the batch stand-ins
+against the factory's batch and returns the step, a donated tree is
+updated in place, and the third item holds the donated trees on the meta
+device.  A mesh of several devices raises (``part.check_mesh``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import model as M
 from repro_torch.models.part import check_mesh
+from repro_torch.train import optimizer as opt
 
 
 def make_batch_abstract(cfg: ArchConfig, shape: ShapeSpec) -> Dict:
@@ -37,6 +39,14 @@ def make_batch_abstract(cfg: ArchConfig, shape: ShapeSpec) -> Dict:
     return batch
 
 
+def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """A token-stream batch (numpy) as the train step takes it: tokens and
+    labels int32, the context stub in bf16, as the launchers pass it."""
+    return {k: torch.as_tensor(v, device=device).to(
+        torch.bfloat16 if k == "ctx" else torch.int32)
+        for k, v in batch.items()}
+
+
 def _check_batch(cfg: ArchConfig, batch_abstract: Dict, batch: int,
                  max_len: int, kind: str) -> None:
     tok = batch_abstract["tokens"]
@@ -53,6 +63,66 @@ def _check_batch(cfg: ArchConfig, batch_abstract: Dict, batch: int,
             f"{kind} step for batch {batch}, max_len {max_len}: stand-ins "
             f"tokens {tok.dtype}{tuple(tok.shape)}, ctx {got_ctx} "
             f"(ctx expected {want_ctx})")
+
+
+def make_train_step(cfg: ArchConfig, mesh, adamw: opt.AdamWConfig,
+                    donate: bool = True, microbatches: int = 1):
+    """Returns (step, jit_for, {params, opt} on the meta device).
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``,
+    metrics {loss, nll, aux, grad_norm, lr}: the gradient of
+    ``model.loss_fn`` by autograd (the layer groups rematerialised), then
+    ``optimizer.update``, in place when ``donate``.
+
+    ``microbatches`` > 1 accumulates the gradient of M sequential slices
+    of the batch in f32 (the reference's scan): each slice's gradient is
+    added as ``acc + g.to(f32)``, the sum divided by M, the loss averaged,
+    and the parts are {nll: loss, aux: 0}."""
+    check_mesh(mesh)
+    params_abs = M.abstract_params(cfg)
+    opt_abs = opt.abstract_state(params_abs)
+
+    def step(params, opt_state, batch):
+        if microbatches == 1:
+            (loss, parts), grads = M.value_and_grad(params, batch, cfg,
+                                                    mesh=mesh)
+        else:
+            micro = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                                  *v.shape[1:]) for k, v in batch.items()}
+            grads = M.tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            for i in range(microbatches):
+                (l, _), g = M.value_and_grad(
+                    params, {k: v[i] for k, v in micro.items()}, cfg,
+                    mesh=mesh)
+                flat_g = M.flatten(g)
+                for path, acc in M.flatten(grads).items():
+                    acc.add_(flat_g[path].to(acc.dtype))
+                loss = loss + l
+                del g, flat_g
+            grads = M.tree_map(lambda g: g / microbatches, grads)
+            loss = loss / microbatches
+            parts = dict(nll=loss, aux=torch.zeros_like(loss))
+        params, opt_state, om = opt.update(adamw, params, grads, opt_state,
+                                           donate=donate)
+        metrics = dict(loss=loss, **parts, **om)
+        return params, opt_state, metrics
+
+    def jit_for(batch_abstract):
+        tok = batch_abstract["tokens"]
+        _check_batch(cfg, batch_abstract, tok.shape[0], tok.shape[1],
+                     "train")
+        lab = batch_abstract.get("labels")
+        if (lab is None or lab.dtype != torch.int32
+                or tuple(lab.shape) != tuple(tok.shape)
+                or tok.shape[0] % microbatches):
+            raise ValueError(
+                f"train step: labels {None if lab is None else lab.dtype}"
+                f"{None if lab is None else tuple(lab.shape)} for tokens "
+                f"{tuple(tok.shape)}, {microbatches} microbatches")
+        return step
+    return step, jit_for, dict(params=params_abs, opt=opt_abs)
 
 
 def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, batch: int,

@@ -24,7 +24,11 @@ torch (no hand-written kernel may launch): the launcher at qwen3-4b's full
 width, and the card against the port on the CPU at full width with 2
 layers and for the ten reduced configs, those also against the JAX
 package's logits, within the family tolerances of
-``src/repro_torch/models/jax_lm_golden.json``.
+``src/repro_torch/models/jax_lm_golden.json``; and its training path: a
+train step of each reduced config against the port on the CPU and three
+against the JAX package's (``src/repro_torch/train/jax_train_golden.json``),
+the optimizer from the CPU's gradients bit for bit, the training launcher
+at qwen3-4b's full width, and a resumed run against an uninterrupted one.
 
 Marked ``gpu``; every test decides inside itself whether a card exists and
 skips without one:
@@ -1304,3 +1308,141 @@ def test_lm_reduced_card_equals_cpu_and_jax_golden(arch):
     err = G.rel_err(G.digest(card["logits"], gold), gold["reduced"][arch])
     assert err <= gold["tolerance"][cfg.family], err
     assert all(v == 0 for v in K.LAUNCHES.values()), dict(K.LAUNCHES)
+
+
+# --------------------------------------------------------------------------- #
+# The LM scaffold's training path on the card (plain torch: no hand-written
+# kernel may launch): a train step against the port on the CPU and three
+# against the JAX package's (src/repro_torch/train/jax_train_golden.json),
+# the optimizer from the CPU's gradients bit for bit, the launcher at full
+# width, and a resumed run against an uninterrupted one
+# --------------------------------------------------------------------------- #
+def _lm_exact_matmuls():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+@pytest.mark.parametrize("arch", sorted(LM_ARCHS))
+def test_lm_train_reduced_card_equals_cpu_and_jax_golden(arch):
+    _card()
+    _lm_exact_matmuls()
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import golden as TG
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+    gold = TG.load()
+    cfg = get_config(arch).reduced()
+    adamw = O.AdamWConfig(**gold["adamw"])
+    K.reset_launches()
+    p_cpu = M.seeded_params(cfg, gold["weights_seed"], "cpu")
+    p_dev = M.tree_map(lambda t: t.cuda(), p_cpu)
+    batches = TG.batches(cfg, gold)
+    host = TG.step_outputs(p_cpu, S.device_batch(batches[0], "cpu"), cfg,
+                           adamw)
+    card = TG.step_outputs(p_dev, S.device_batch(batches[0], "cuda"), cfg,
+                           adamw)
+    dev = TG.step_deviations(card, host, cfg.family, gold)
+    assert all(v <= 1.0 for v in dev.values()), sorted(dev.items())
+    step, _, _ = S.make_train_step(cfg, None, adamw)
+    state = O.init_state(p_dev)
+    want = gold["reduced"][arch]
+    for i, b in enumerate(batches):
+        p_dev, state, m = step(p_dev, state, S.device_batch(b, "cuda"))
+        assert float(m["lr"]) == want["lr"][i]
+        assert abs(float(m["loss"]) - want["loss"][i]) <= gold["loss_tol"]
+        assert (abs(float(m["grad_norm"]) - want["grad_norm"][i])
+                <= gold["grad_norm_tol"] * want["grad_norm"][i])
+    assert all(t.device.type == "cuda" for t in O.tree_leaves(state))
+    assert all(v == 0 for v in K.LAUNCHES.values()), dict(K.LAUNCHES)
+
+
+def test_lm_train_optimizer_on_the_card_equals_cpu_bit_for_bit():
+    """Three clipped AdamW steps from the same gradients (the CPU's),
+    donated on the card: parameters, moments, step, grad norm and learning
+    rate equal bit for bit."""
+    _card()
+    _lm_exact_matmuls()
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import golden as TG
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+    gold = TG.load()
+    cfg = get_config("qwen3-4b").reduced()
+    adamw = O.AdamWConfig(**gold["adamw"])
+    p_cpu = M.seeded_params(cfg, 0, "cpu")
+    p_dev = M.tree_map(lambda t: t.cuda(), p_cpu)
+    s_cpu, s_dev = O.init_state(p_cpu), O.init_state(p_dev)
+    for b in TG.batches(cfg, gold):
+        _, g = M.value_and_grad(p_cpu, S.device_batch(b, "cpu"), cfg)
+        p_cpu, s_cpu, m_cpu = O.update(adamw, p_cpu, g, s_cpu)
+        p_dev, s_dev, m_dev = O.update(
+            adamw, p_dev, M.tree_map(lambda t: t.cuda(), g), s_dev,
+            donate=True)
+        for k in ("grad_norm", "lr"):
+            assert float(m_dev[k]) == float(m_cpu[k]), k
+        for a, b_ in zip(O.tree_leaves((p_dev, s_dev)),
+                         O.tree_leaves((p_cpu, s_cpu))):
+            assert torch.equal(a.cpu(), b_)
+
+
+def test_lm_train_launcher_at_full_width_on_the_card(capsys):
+    dev = _card()
+    _lm_exact_matmuls()
+    import re
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    K.reset_launches()
+    res = train.run(train.parse_args(["--arch", "qwen3-4b", "--steps", "2",
+                                      "--batch", "2", "--seq", "32",
+                                      "--log-every", "1"]))
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "arch=qwen3-4b devices=1 mesh={'data': 1, 'model': 1}"
+    assert all(re.match(r"step +[12] loss=\d+\.\d{4} gnorm=", x)
+               for x in lines[1:3])
+    assert lines[-1].startswith("done: 2 steps, final loss ")
+    leaves = list(M.flatten(res["params"]).values())
+    assert sum(t.numel() for t in leaves) == 4_411_424_256
+    assert all(t.device == dev for t in leaves)
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
+    assert all(v == 0 for v in K.LAUNCHES.values()), dict(K.LAUNCHES)
+
+
+def test_lm_train_resume_on_the_card_is_exact(tmp_path):
+    """Reduced qwen3-4b, 8 steps saving every 4, in a process under
+    deterministic algorithms; a second process resumed from a copy of its
+    step-4 checkpoint ends with every leaf equal (sha256)."""
+    _card()
+    import json
+    import os
+    import pathlib
+    import shutil
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    code = ("import sys, torch; torch.use_deterministic_algorithms(True); "
+            "from repro_torch.launch import train; train.main(sys.argv[1:])")
+    argv = ["--arch", "qwen3-4b", "--reduced", "--steps", "8",
+            "--save-every", "4", "--batch", "4", "--seq", "64"]
+
+    def launch(d):
+        r = subprocess.run([sys.executable, "-c", code, *argv, "--ckpt-dir",
+                            str(d)], env=env, capture_output=True, text=True,
+                           timeout=300)
+        assert r.returncode == 0, r.stdout + r.stderr[-4000:]
+        return r.stdout
+
+    launch(tmp_path / "whole")
+    shutil.copytree(tmp_path / "whole" / "step_000000004",
+                    tmp_path / "resumed" / "step_000000004")
+    assert "resumed from step 4" in launch(tmp_path / "resumed")
+    m = [json.loads((tmp_path / d / "step_000000008" / "manifest.json")
+                    .read_text()) for d in ("whole", "resumed")]
+    assert m[0]["leaves"] == m[1]["leaves"]
+    assert m[0]["data_state"] == m[1]["data_state"] == {"seed": 0,
+                                                        "step": 8}

@@ -15,8 +15,10 @@ from repro_torch.signal import simulate                       # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-# the pre-port ``benchmarks`` and ``scripts`` packages import repro and jax
-FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks", "scripts"}
+# the pre-port ``benchmarks`` and ``scripts`` packages import repro and jax;
+# bf16 goes through torch's own dtype, never ml_dtypes (the card's host
+# has none)
+FORBIDDEN = {"jax", "jaxlib", "repro", "benchmarks", "scripts", "ml_dtypes"}
 
 
 def _port_files():
@@ -284,3 +286,25 @@ def test_lm_serving_defaults_to_cuda_and_raises_without_it(no_cuda):
     toks = serve.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
                        "--batch", "1", "--prompt-len", "4", "--gen", "2"])
     assert toks.shape == (1, 2)
+
+
+def test_lm_training_defaults_to_cuda_and_raises_without_it(no_cuda,
+                                                           tmp_path):
+    """The LM's training entry points (``repro_torch.launch.train``, the
+    ``train_lm`` example, ``checkpoint.restore``; all under the import
+    guard above) run on the card unless given the CPU: without a card
+    they raise before any work."""
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint
+    for mod in ("train/optimizer.py", "train/checkpoint.py",
+                "train/monitor.py", "train/golden.py", "data/tokens.py",
+                "launch/train.py", "examples/train_lm.py"):
+        assert PORT / mod in _port_files(), mod
+    for call in (lambda: train.main(["--arch", "qwen3-4b", "--reduced",
+                                     "--steps", "1"]),
+                 lambda: train_lm.main(["--steps", "1"]),
+                 lambda: checkpoint.restore(tmp_path, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.iterdir())

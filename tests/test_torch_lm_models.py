@@ -89,7 +89,8 @@ def test_lm_module_holds_the_tree(pair):
     arch, cfg_t, _, params_t, _, batch = pair
     lm = TM.LM(cfg_t, params_t)
     assert set(lm.state_dict()) == set(TM.flatten(params_t))
-    assert all(not p.requires_grad for p in lm.parameters())
+    # leaves that require a gradient (the training slice's autograd)
+    assert all(p.requires_grad for p in lm.parameters())
     tok = torch.from_numpy(batch["tokens"][:, :8])
     ctx = batch.get("ctx")
     ctx = None if ctx is None else torch.from_numpy(ctx)
