@@ -213,7 +213,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                reduced qwen3-4b run of 8 steps and a second process resumed
                from its step-4 checkpoint, under deterministic algorithms,
                equal leaf for leaf (sha256);
-13. summary  — one JSON line of per-kernel results, then the last line
+13. lm_sharded — the LM's sharded serving path (``models.part``), which
+               launches no hand-written kernel either (every count must
+               read 0 on every rank): the one-device port on the card
+               first, then a (2, 2) ('data', 'model') mesh of 4 gloo ranks
+               sharing the card (``run_ranks``; on a host of 4 or more
+               cards again with one NCCL rank a card): qwen3-4b at full
+               width and depth, each rank holding its quarter of the
+               launcher's weights (seed 0, drawn on the card): prefill(64)
+               and 2 teacher-forced decode steps against the one-device
+               port (within FULL_DEPTH_BOUND at full depth and within the
+               dense bound at 2 layers), then the launcher's body (batch 4,
+               prompt 64, gen 4, not 32: a step takes seconds; rank 0
+               prints its lines): prefill and decode tok/s, ms a decode
+               step against the one-device bound, peak memory a rank, and
+               one profiled decode step's launches, busy share, collective
+               calls and bytes by kind and gloo's staging; the ten reduced
+               configs against the one-device port on the card and the
+               JAX package's sharded golden
+               (``src/repro_torch/models/jax_lm_sharded_golden.json``);
+               ``psum_int8`` over both axes against the host; a sharded
+               save equal file for file to the one-device save, restored
+               onto a (2, 1) mesh block for block;
+14. summary  — one JSON line of per-kernel results, then the last line
                ``{"ok": true, "device": {...}}``.  Every log line also goes
                to ``chiprun_out/chip_smoke.log``.
 
@@ -221,12 +243,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 phase 8 alone (the NCCL run too on a host of several cards), records them
 in ``chiprun_out/chip_smoke_sharded.json`` and prints no result line;
 ``--train-only`` runs phases 1 and 12 alone into
-``chiprun_out/chip_smoke_train.json``, with no result line either.
+``chiprun_out/chip_smoke_train.json``, with no result line either, and
+``--lm-sharded-only`` phases 1 and 13 into
+``chiprun_out/chip_smoke_lm_sharded.json``, phase 13 with its diagnosis
+(``lm_sharded_diagnosis``: the one-device port on the host's CPU against
+the card at full depth, and the residual stream block by block against
+one device, naming the first block that differs).
 
 It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -3428,6 +3456,424 @@ def phase_train(smi):
                 launches=dict(K.LAUNCHES), seconds=seconds)
 
 
+# The LM scaffold's sharded serving path (``lm_sharded`` phase): qwen3-4b
+# at full width on a (2, 2) mesh of 4 gloo ranks sharing the card, through
+# the launcher's body at the JAX launcher's defaults
+LM_SHARDED_MESH = ((2, 2), ("data", "model"))
+# 4 decode steps, not the launcher's 32: a step takes 4.8-6.7 s on 4
+# ranks sharing one card (gloo's all-gather of the FSDP blocks), and 32
+# would pass the phase's 180 s alone
+LM_SHARDED_GEN = 4
+LM_SHARDED_ARGV = ["--arch", "qwen3-4b", "--mesh", "2x2", "--batch", "4",
+                   "--prompt-len", "64", "--gen", str(LM_SHARDED_GEN)]
+TEACHER_STEPS = 2        # decode steps of the teacher-forced check
+# The teacher-forced check's bound at full depth (36 layers), where a bf16
+# rounding flipped by another accumulation order grows layer by layer (the
+# family bound, 2e-2, holds at 2 layers).  It lies between the sound
+# sharded runs' largest reading, 3.57% (the same in every run: the inputs
+# and the card's kernels are deterministic), and the control's, the
+# one-device port on the host's CPU against the card, 3.66-4.42%: the
+# sharded path may stray from one device no further than another
+# accumulation order of the same arithmetic does (PERF.md §6).
+FULL_DEPTH_BOUND = 4e-2
+
+
+def lm_teacher_logits(params, cfg, tokens, mesh=None):
+    """Teacher-forced logits: the prefill of ``tokens[:, :-TEACHER_STEPS]``
+    and TEACHER_STEPS decode steps fed the tokens that follow, as
+    (TEACHER_STEPS + 1, batch, vocab) f32 numpy (on a mesh: the rank's
+    blocks, the whole logits)."""
+    import numpy as np
+    from repro_torch.models import model as M
+    B, P = tokens.shape[0], tokens.shape[1] - TEACHER_STEPS
+    cache = M.init_cache(cfg, B, P + 32, device=tokens.device, mesh=mesh)
+    out = [M.prefill(params, tokens[:, :P], cfg, cache=cache, mesh=mesh)[0]]
+    for i in range(TEACHER_STEPS):
+        out.append(M.decode_step(params, tokens[:, P + i:P + i + 1], cfg,
+                                 cache=cache, cache_index=P + i,
+                                 mesh=mesh)[0])
+    return np.stack([o.float().cpu().numpy() for o in out])
+
+
+def lm_block_residuals(params, cfg, tokens, mesh=None):
+    """The residual stream of a prefill of ``tokens``: the embedding, then
+    every block's output, as (n_layers + 1, rows, seq, d_model) f32 numpy
+    (on a mesh: the rank's rows).  ``transformer._apply_block`` is wrapped
+    for the call to record them."""
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    seen, apply = [], T._apply_block
+
+    def record(x, *args, **kw):
+        if not seen:
+            seen.append(x.float().cpu().numpy())
+        out = apply(x, *args, **kw)
+        seen.append(out[0].float().cpu().numpy())
+        return out
+
+    cache = M.init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                         device=tokens.device, mesh=mesh)
+    T._apply_block = record
+    try:
+        M.prefill(params, tokens, cfg, cache=cache, mesh=mesh)
+    finally:
+        T._apply_block = apply
+    return np.stack(seen)
+
+
+def lm_exact_matmuls() -> None:
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def lm_sharded_rank(job):
+    """One rank of the ``lm_sharded`` phase (spawned by ``run_ranks``): the
+    teacher-forced check at qwen3-4b's full width on the launcher's
+    weights (with ``job["diagnose"]``, also the residual stream block by
+    block), the launcher's body (timed; rank 0 prints its lines), one
+    profiled decode step, the ten reduced configs, ``psum_int8`` over both
+    axes, and a sharded save restored onto a (2, 1) mesh."""
+    import shutil
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.collectives import psum_int8
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import AbstractMesh, make_mesh
+    from repro_torch.models import golden as G
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import steps as TS
+    lm_exact_matmuls()
+    mesh = make_mesh(*job["mesh"], backend=job["backend"])
+    dev = mesh.device
+    K.reset_launches()
+    res = dict(rank=mesh.rank, coords=mesh.coords, backend=mesh.backend,
+               device=str(dev), card=torch.cuda.get_device_name(dev))
+    # the teacher-forced check on the launcher's weights (seed 0, drawn on
+    # the card; each rank keeps its blocks)
+    cfg = get_config("qwen3-4b")
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev,
+                           mesh=mesh)
+    res["param_bytes"] = tree_bytes(params)
+    teacher = torch.as_tensor(job["teacher"], device=dev)
+    res["teacher"] = lm_teacher_logits(params, cfg, teacher, mesh)
+    if job["diagnose"]:
+        # every rank runs it (its collectives); 'model' peers hold the same
+        # rows, so one of them returns them
+        blocks = lm_block_residuals(params, cfg, teacher[:, :-TEACHER_STEPS],
+                                    mesh)
+        if mesh.coords["model"] == 0:
+            res["blocks"] = blocks
+    del params
+    # the same at full width with 2 layers (weights seed 1)
+    cfg2 = cfg.replace(n_layers=2)
+    res["teacher_cut"] = lm_teacher_logits(M.init_params(
+        cfg2, torch.Generator(dev).manual_seed(1), dev, mesh=mesh), cfg2,
+        teacher, mesh)
+    torch.cuda.empty_cache()
+    # the launcher's body, timed from its own clock
+    torch.cuda.synchronize(dev)
+    mesh.stats.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = serve.serve(serve.parse_args(job["argv"]), mesh)
+    res["serve"] = dict(prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                        tokens=out["tokens"], stats=dict(mesh.stats),
+                        cache_bytes=tree_bytes(out["cache"]),
+                        peak=torch.cuda.max_memory_allocated(dev))
+    # one more decode step (the launcher's warmed every path) under
+    # torch.profiler
+    params, cache = out.pop("params"), out.pop("cache")
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    step = lambda: M.decode_step(params, tok, cfg, cache=cache,
+                                 cache_index=64 + LM_SHARDED_GEN - 1,
+                                 mesh=mesh)
+    torch.cuda.synchronize(dev)
+    mesh.stats.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    busy, by_kernel = device_busy(
+        prof, f"trace_lm_sharded_{mesh.backend}_rank{mesh.rank}.json.gz")
+    res["profile"] = dict(
+        wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+        launches=sum(n for n, _ in by_kernel.values()),
+        stats=dict(mesh.stats),
+        top_kernels=sorted(((k[:60], n, us / 1e3)
+                            for k, (n, us) in by_kernel.items()),
+                           key=lambda r: -r[2])[:5])
+    del params, cache, out
+    torch.cuda.empty_cache()
+    # the ten reduced configs, the JAX sharded golden's inputs
+    res["reduced"] = G.serve_reduced(G.load_sharded(), dev, mesh)
+    x = torch.from_numpy(G.collective_inputs()["x"][mesh.rank]).to(dev)
+    res["psum"] = psum_int8(x, mesh, ("data", "model")).cpu().numpy()
+    # a sharded save from the (2, 2) mesh, restored onto (2, 1)
+    cfg_r = get_config("qwen3-4b").reduced()
+    local = M.seeded_params(cfg_r, 0, dev, mesh=mesh)
+    ckdir = pathlib.Path(job["ckpt"]) / "sharded"
+    if mesh.rank == 0:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    mesh.barrier()
+    shard = lambda m: TS.make_prefill_step(cfg_r, m, 32, 4)[2][
+        "params"]
+    CK.save(ckdir, 1, local, shardings=shard(mesh))
+    mesh21 = AbstractMesh((2, 1), ("data", "model"), rank=mesh.rank % 2)
+    restored, _, _, _ = CK.restore(ckdir, M.abstract_params(cfg_r),
+                                   device=dev, shardings=shard(mesh21))
+    whole = M.flatten(M.seeded_params(cfg_r, 0, "cpu"))
+    sh21 = M.flatten(shard(mesh21))
+    res["restore_bad"] = [
+        p for p, t in M.flatten(restored).items()
+        if not torch.equal(t.cpu(), SH.block(whole[p], sh21[p].spec,
+                                             mesh21))]
+    res["launches"] = dict(K.LAUNCHES)
+    return res
+
+
+def lm_sharded_diagnosis(outs, ref) -> tuple:
+    """The ``--lm-sharded-only`` diagnosis: the one-device port on the
+    host's CPU against the card at full depth (the control of
+    FULL_DEPTH_BOUND), and the residual stream of the ranks that return
+    one (``lm_block_residuals``) against one device's rows block by block:
+    max|Δ| over max|one device| and the share of elements that differ
+    after each block, and the first block that differs.  The embedding
+    (a masked lookup summed over 'model') must be equal bit for bit."""
+    import numpy as np
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import AbstractMesh
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    out = dict(cpu_rel_err=[rel(a, w) for a, w in
+                            zip(ref["cpu"], ref["teacher"])],
+               cpu_s=ref["cpu_s"], ranks={})
+    failed = []
+    for r in outs:
+        if "blocks" not in r:
+            continue
+        mesh = AbstractMesh(*LM_SHARDED_MESH, rank=r["rank"])
+        one = SH.block(ref["blocks"], (None, "data", None, None), mesh)
+        err = [rel(g, o) for g, o in zip(r["blocks"], one)]
+        share = [float((g != o).mean()) for g, o in zip(r["blocks"], one)]
+        first = next((i for i, f in enumerate(share) if f), None)
+        out["ranks"][r["rank"]] = dict(rel_err=err, differing_share=share,
+                                       first_differing_layer=first)
+        if share[0]:
+            failed.append(f"rank {r['rank']}: the embedding differs from "
+                          f"one device's in {share[0]:.4%} of its elements")
+        shown = sorted({i for i in (1, 2, 4, 9, 18, len(err) - 1)
+                        if i < len(err)})
+        where = ("no layer's output differs" if first is None else
+                 f"the first output that differs is layer {first}'s")
+        log(f"[lm-sharded] residual stream block by block (rank "
+            f"{r['rank']}, its rows of the prefill of 64): the embedding "
+            f"{'equal' if not share[0] else 'DIFFERENT'}; {where}; after "
+            f"layers {shown}: "
+            f"max|d|/max|one| {[round(err[i], 5) for i in shown]}, share "
+            f"of elements differing {[round(share[i], 4) for i in shown]}")
+    log(f"[lm-sharded] control: the one-device port on the host's CPU "
+        f"against the card at full depth "
+        f"{[round(t, 5) for t in out['cpu_rel_err']]} (the CPU run "
+        f"{out['cpu_s']:.1f} s)")
+    return out, failed
+
+
+def lm_sharded_check(label, outs, ref, gold, smi, spawn_s) -> dict:
+    """Hold every rank's results (``lm_sharded_rank``) against the port on
+    the card's one device (``ref``: ``teacher`` at full depth, ``cut`` at
+    2 layers, ``single`` the reduced configs, and with a diagnosis
+    ``blocks`` and ``cpu``) and the JAX golden; log what the mesh
+    measured, then raise for every check that failed.
+
+    The teacher-forced logits are held to the dense family bound at 2
+    layers and to FULL_DEPTH_BOUND at full depth."""
+    import numpy as np
+    from repro_torch.models import golden as G
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    tol = gold["tolerance"]
+    want_psum = G.psum_int8_host(G.collective_inputs()["x"])
+    failed = []
+    for r in outs:
+        if not np.array_equal(r["teacher"], outs[0]["teacher"]):
+            failed.append(f"rank {r['rank']}'s logits differ from rank 0's")
+        launched = {k: v for k, v in r["launches"].items() if v}
+        if launched:
+            failed.append(f"rank {r['rank']}: hand-written kernels "
+                          f"launched {launched}")
+        if r["restore_bad"]:
+            failed.append(f"rank {r['rank']}: restored blocks differ "
+                          f"{r['restore_bad']}")
+        if not np.array_equal(r["psum"], want_psum):
+            failed.append(f"rank {r['rank']}: psum_int8 differs from the "
+                          "host's")
+    teacher = [rel(outs[0]["teacher"][i], w)
+               for i, w in enumerate(ref["teacher"])]
+    cut = [rel(outs[0]["teacher_cut"][i], w)
+           for i, w in enumerate(ref["cut"])]
+    if not max(teacher) <= FULL_DEPTH_BOUND:
+        failed.append(f"qwen3-4b teacher-forced logits against one device "
+                      f"{teacher} (limit {FULL_DEPTH_BOUND})")
+    if not max(cut) <= tol["dense"]:
+        failed.append(f"qwen3-4b with 2 layers: teacher-forced logits "
+                      f"against one device {cut} (limit {tol['dense']})")
+    reduced = {}
+    for arch, one in ref["single"].items():
+        d, bad = G.sharded_deviations(
+            arch, [r["reduced"][arch] for r in outs], one, gold)
+        failed += bad
+        reduced[arch] = d
+        log(f"[lm-sharded] {label} {arch}-reduced: against one device on "
+            f"the card {max(d[k] for k in one):.5f}, against the JAX "
+            f"sharded golden {max(d['jax_prefill'], d['jax_decode']):.5f}")
+    diagnosis = None
+    if "blocks" in ref:
+        diagnosis, bad = lm_sharded_diagnosis(outs, ref)
+        failed += bad
+    r0 = outs[0]
+    sv, pr = r0["serve"], r0["profile"]
+    B, P, gen = 4, 64, LM_SHARDED_GEN
+    bound_ms = ref["single_bytes"] / HBM_BYTES_PER_S * 1e3
+    step_stats = pr["stats"]
+    kinds = sorted({k[:-6] for k in step_stats if k.endswith("_calls")})
+    per_step = {k: dict(calls=step_stats.get(f"{k}_calls", 0),
+                        bytes=step_stats.get(f"{k}_bytes", 0),
+                        ms=step_stats.get(f"{k}_s", 0.0) * 1e3)
+                for k in kinds}
+    out = dict(
+        backend=r0["backend"], ranks=len(outs), spawn_s=spawn_s,
+        devices=[r["device"] for r in outs],
+        param_bytes_by_rank=[r["param_bytes"] for r in outs],
+        prefill_ms=sv["prefill_s"] * 1e3,
+        prefill_tok_s=B * P / sv["prefill_s"],
+        decode_ms_per_step=sv["decode_s"] / gen * 1e3,
+        decode_tok_s=B * gen / sv["decode_s"], decode_bound_ms=bound_ms,
+        tokens=sv["tokens"].tolist(), run_stats=sv["stats"],
+        step_collectives=per_step,
+        step_staging_ms=step_stats.get("staging_s", 0.0) * 1e3,
+        step_staged_bytes=step_stats.get("staged_bytes", 0),
+        step_wall_ms=pr["wall_ms"], step_busy_ms=pr["busy_ms"],
+        step_busy_share=pr["busy_ms"] / pr["wall_ms"],
+        step_launches=pr["launches"], top_kernels=pr["top_kernels"],
+        peak_bytes_by_rank=[r["serve"]["peak"] for r in outs],
+        teacher_rel_err=teacher, teacher_bound=FULL_DEPTH_BOUND,
+        cut_depth_rel_err=cut, reduced=reduced, diagnosis=diagnosis,
+        launches_by_rank=[r["launches"] for r in outs])
+    log(f"[lm-sharded] {label}: qwen3-4b full width, {len(outs)} ranks "
+        f"({out['backend']}; {sorted(set(out['devices']))}), batch 4, "
+        f"prompt 64, gen {gen}: prefill {out['prefill_ms']:.3f} ms "
+        f"({out['prefill_tok_s']:.1f} tok/s), decode "
+        f"{out['decode_ms_per_step']:.3f} ms a step "
+        f"({out['decode_tok_s']:.3f} tok/s) against the one-device bound "
+        f"{bound_ms:.4f} ms; teacher-forced logits (prefill, then "
+        f"{TEACHER_STEPS} decode steps) against one device "
+        f"{[round(t, 5) for t in teacher]} (limit {FULL_DEPTH_BOUND}), "
+        f"with 2 layers {[round(t, 5) for t in cut]} (limit "
+        f"{tol['dense']}); peak "
+        f"{[round(p / 2**30, 3) for p in out['peak_bytes_by_rank']]} GiB by "
+        f"rank; parameter blocks "
+        f"{[round(b / 1e9, 3) for b in out['param_bytes_by_rank']]} GB; "
+        f"ranks spawned and joined in {spawn_s:.1f} s; {smi}")
+    log(f"[lm-sharded] {label} one decode step (rank 0, torch.profiler): "
+        f"wall {pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} ms "
+        f"({100 * out['step_busy_share']:.1f}%), {pr['launches']} kernel "
+        f"launches; collectives {per_step}; staged "
+        f"{out['step_staged_bytes'] / 1e9:.3f} GB in "
+        f"{out['step_staging_ms']:.3f} ms; {smi}")
+    if failed:
+        raise AssertionError(f"lm_sharded {label}: " + "; ".join(failed))
+    return out
+
+
+def phase_lm_sharded(smi, diagnose=False):
+    """The LM's sharded serving path on 4 gloo ranks sharing the card (and
+    on one NCCL rank a card where the host has 4 or more): the one-device
+    port on the card first (the teacher-forced qwen3-4b logits on the
+    launcher's weights, the ten reduced configs), then the ranks
+    (``lm_sharded_rank``), each held against it; no hand-written kernel
+    may launch.  ``diagnose`` adds ``lm_sharded_diagnosis``."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import golden as G
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as CK
+    t0 = time.time()
+    K.reset_launches()
+    lm_exact_matmuls()
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()           # earlier phases' cached blocks
+    cfg = get_config("qwen3-4b")
+    teacher = np.random.default_rng(5).integers(
+        0, cfg.vocab, (4, 64 + TEACHER_STEPS)).astype(np.int32)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    t_dev = torch.as_tensor(teacher, device=dev)
+    ref = dict(teacher=lm_teacher_logits(params, cfg, t_dev))
+    if diagnose:
+        ref["blocks"] = lm_block_residuals(params, cfg,
+                                           t_dev[:, :-TEACHER_STEPS])
+        # the control: the same logits on the host's CPU (oneDNN's
+        # accumulation order, not cuBLAS's)
+        t_cpu = time.time()
+        ref["cpu"] = lm_teacher_logits(M.tree_map(lambda t: t.cpu(), params),
+                                       cfg, torch.as_tensor(teacher))
+        ref["cpu_s"] = time.time() - t_cpu
+    cfg2 = cfg.replace(n_layers=2)
+    ref["cut"] = lm_teacher_logits(M.init_params(
+        cfg2, torch.Generator(dev).manual_seed(1), dev), cfg2, t_dev)
+    ref["single_bytes"] = tree_bytes(params) + tree_bytes(
+        M.abstract_cache(cfg, 4, 64 + LM_SHARDED_GEN))
+    del params
+    torch.cuda.empty_cache()
+    gold = G.load_sharded()
+    ref["single"] = G.serve_reduced(gold, dev)
+    ckpt = ROOT / "build" / "lm_sharded_ckpt"
+    CK.save(ckpt / "single", 1, M.seeded_params(
+        get_config("qwen3-4b").reduced(), 0, dev))
+    job = dict(mesh=LM_SHARDED_MESH, backend="gloo", argv=LM_SHARDED_ARGV,
+               teacher=teacher, ckpt=str(ckpt), diagnose=diagnose)
+    out = {}
+    runs = [("gloo", 4)]
+    if torch.cuda.device_count() >= 4:
+        runs.append(("nccl", 4))
+    else:
+        log("[lm-sharded] one card: no NCCL run (NCCL needs a card per "
+            "rank)")
+    for backend, n in runs:
+        t1 = time.time()
+        outs = run_ranks(lm_sharded_rank, n, dict(job, backend=backend),
+                         backend=backend, timeout=900)
+        label = f"{backend} {LM_SHARDED_MESH[0]}"
+        out[backend] = lm_sharded_check(label, outs, ref, gold, smi,
+                                        time.time() - t1)
+        digests = [
+            {f.name: hashlib.sha256(f.read_bytes()).hexdigest()
+             for f in sorted(next((ckpt / d).glob("step_*")).iterdir())}
+            for d in ("sharded", "single")]
+        if digests[0] != digests[1]:
+            raise AssertionError(f"lm_sharded {label}: the sharded save's "
+                                 "files differ from the one-device save's")
+    launched = {k: v for k, v in K.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"lm_sharded: hand-written kernels launched "
+                             f"{launched}")
+    seconds = time.time() - t0
+    log(f"[lm-sharded] no hand-written kernel launched on any rank; the "
+        f"sharded save equals the one-device save file for file; phase "
+        f"{seconds:.1f} s")
+    out["seconds"] = seconds
+    out["rank_launches"] = out["gloo"]["launches_by_rank"]
+    return out
+
+
 def main() -> int:
     try:
         return run()
@@ -3463,6 +3909,16 @@ def run() -> int:
         return out
 
     name, smi = timed("device", phase_device)
+    if "--lm-sharded-only" in sys.argv[1:]:
+        # the sharded LM phase alone; no kernels line and no result line
+        lm_sharded = timed("lm_sharded", phase_lm_sharded, smi, True)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_lm_sharded.json").write_text(json.dumps(
+            dict(device=name, nvidia_smi=smi, lm_sharded=lm_sharded,
+                 phase_seconds=seconds), indent=1, default=str))
+        log(smi)
+        return 0
     if "--train-only" in sys.argv[1:]:
         # the training phase alone; no kernels line and no result line
         train_ = timed("train", phase_train, smi)
@@ -3518,6 +3974,7 @@ def run() -> int:
     bench = timed("bench", phase_bench, dev, smi)
     lm = timed("lm", phase_lm, smi)
     train_ = timed("train", phase_train, smi)
+    lm_sharded = timed("lm_sharded", phase_lm_sharded, smi)
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)
@@ -3532,7 +3989,9 @@ def run() -> int:
             **{f"sharded kernels rank {r}": v
                for r, v in enumerate(sharded["rank_launches"])},
             **paper["launches"],
-            **{f"bench {g}": v for g, v in bench["launches"].items()}}
+            **{f"bench {g}": v for g, v in bench["launches"].items()},
+            **{f"lm_sharded rank {r}": v
+               for r, v in enumerate(lm_sharded["rank_launches"])}}
     sources = {
         "cheap_fused": ("src/repro_torch/csrc/cheap_fused.cu",
                         "src/repro/kernels/cheap_fused/cheap_fused.py:367",
@@ -3584,7 +4043,7 @@ def run() -> int:
              tiered=tiered_,
              launcher=launcher,
              routes=routes, serve=serve, sharded=sharded, paper=paper,
-             bench=bench, lm=lm, train=train_,
+             bench=bench, lm=lm, lm_sharded=lm_sharded, train=train_,
              phase_seconds=seconds,
              seconds=time.time() - t_all),
         indent=1,
@@ -3631,6 +4090,13 @@ def run() -> int:
             "decode_bound_ms", "step_launches", "step_busy_share",
             "max_memory_allocated")} for a, r in lm["serve"].items()},
         seconds=lm["seconds"])))
+    log("[lm-sharded-summary] " + json.dumps(dict(
+        card=smi, **{b: {k: r[k] for k in (
+            "prefill_tok_s", "decode_tok_s", "decode_ms_per_step",
+            "decode_bound_ms", "step_collectives", "step_staging_ms",
+            "step_busy_share", "step_launches", "peak_bytes_by_rank")}
+            for b, r in lm_sharded.items() if b in ("gloo", "nccl")},
+        seconds=lm_sharded["seconds"])))
     log("[train-summary] " + json.dumps(dict(
         card=smi, full={a: {k: r[k] for k in (
             "ms_per_step", "tok_s", "bound_ms", "max_memory_allocated",

@@ -1,13 +1,19 @@
-"""Device meshes over ``torch.distributed`` for the sharded mapper.
+"""Device meshes over ``torch.distributed``: the sharded mapper's and the
+LM's.
 
 The reference package drives every device of its mesh from one process
 (``jax.make_mesh``).  The port runs one process per rank (SPMD): every rank
 calls ``make_mesh`` with the same shape and axis names and gets a ``Mesh``
 holding its own coordinates, its device, one process group per axis, and
-the collectives the sharded chunk program issues (``all_gather_rows``,
-``all_reduce_sum`` over the whole mesh; ``ring_shift`` and ``all_to_all``
-along one axis).  Ranks are laid out row-major over the axes, so a rank's
-global number is its shard id (``pipeline.sharded_chunk_fn``).
+the collectives its programs issue: ``all_gather_rows`` and
+``all_reduce_sum`` over the whole mesh and ``ring_shift`` and
+``all_to_all`` along one axis (the sharded chunk program), ``all_gather``
+along a dim and ``all_reduce`` (sum or max) over one axis or a tuple of
+axes (the LM's FSDP, TP and EP layers).  Ranks are laid out row-major over
+the axes, so a rank's global number is its shard id
+(``pipeline.sharded_chunk_fn``).  ``AbstractMesh`` is a mesh's shape and
+axis names without ranks (``make_production_mesh``; the sharding rules
+take either).
 
 Backends: ``nccl`` when each rank owns a card, ``gloo`` when ranks share one
 card or run on the CPU.  gloo takes no CUDA tensors for point-to-point or
@@ -73,7 +79,47 @@ def _check_backend(device: torch.device, backend: Optional[str],
     return backend or ("gloo" if shared else "nccl")
 
 
-class Mesh:
+class AbstractMesh:
+    """A mesh's axis names and extents, without processes
+    (``jax.sharding.AbstractMesh``): ``axis_names``, ``shape[axis]`` and
+    ``size``, all the sharding rules read.  Given a ``rank`` it also holds
+    that rank's ``coords`` (row-major over the axes), enough to cut the
+    rank's block of an array (``distributed.sharding.block``) with no
+    collective: what a rank of that mesh would hold."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 rank: Optional[int] = None):
+        shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axes)
+        if len(shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {shape} and axes {axes} differ "
+                             "in length")
+        self.shape = collections.OrderedDict(zip(self.axis_names, shape))
+        self.size = math.prod(shape)
+        if rank is not None:
+            self.rank = int(rank)
+            coords = np.unravel_index(self.rank, shape)
+            self.coords = {a: int(c) for a, c in zip(self.axis_names,
+                                                     coords)}
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         layout: str = "2d") -> AbstractMesh:
+    """The reference's production meshes, abstract (no ranks): 16 x 16 =
+    256 devices ('data', 'model'), or with ``multi_pod`` 2 x 16 x 16 = 512
+    ('pod', 'data', 'model'); ``pod`` x ``data`` form the DP/FSDP domain,
+    ``model`` carries TP and EP.  ``layout='fsdp'`` renames 'model' to
+    'data2', so the sharding rules treat every axis as a DP/FSDP axis."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if layout == "fsdp":
+        axes = axes[:-1] + ("data2",)
+    elif layout != "2d":
+        raise ValueError(f"unknown layout {layout!r}; use '2d' or 'fsdp'")
+    return AbstractMesh(shape, axes)
+
+
+class Mesh(AbstractMesh):
     """One rank's view of a device mesh (build it with ``make_mesh``).
 
     ``axis_names`` and ``shape[axis]`` as a JAX mesh has them; ``rank`` (the
@@ -90,14 +136,9 @@ class Mesh:
 
     def __init__(self, shape: Tuple[int, ...], axes: Tuple[str, ...],
                  device: torch.device, backend: str, rank: int):
-        self.axis_names = tuple(axes)
-        self.shape = collections.OrderedDict(zip(self.axis_names, shape))
-        self.size = math.prod(shape)
-        self.rank = int(rank)
+        super().__init__(shape, axes, rank)
         self.device = device
         self.backend = backend
-        coords = np.unravel_index(self.rank, shape)
-        self.coords = {a: int(c) for a, c in zip(self.axis_names, coords)}
         self._stage = backend == "gloo" and device.type == "cuda"
         self.stats: collections.Counter = collections.Counter()
         timeout = datetime.timedelta(seconds=GROUP_TIMEOUT_S)
@@ -175,16 +216,7 @@ class Mesh:
         n = self.shape[axis]
         if n == 1:
             return list(tensors)
-        segs, metas, off = [], [], 0
-        for t in tensors:
-            b = t.contiguous().reshape(-1).view(torch.uint8)
-            pad = -b.numel() % _ALIGN
-            segs.append(b)
-            if pad:
-                segs.append(b.new_zeros(pad))
-            metas.append((off, t.dtype, t.shape, b.numel()))
-            off += b.numel() + pad
-        buf = torch.cat(segs)
+        buf, metas = _pack(tensors)
         send = self._to_wire(buf)
         recv = torch.empty_like(send)
         ranks, c = self.group_ranks[axis], self.coords[axis]
@@ -197,9 +229,7 @@ class Mesh:
                            group=group)])
             for r in reqs:
                 r.wait()
-        recv = self._from_wire(recv)
-        return [recv[o:o + nb].view(dtype).reshape(shape)
-                for o, dtype, shape, nb in metas]
+        return _unpack(self._from_wire(recv), metas)
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x`` of leading extent n = shape[axis]: block j goes to the
@@ -216,6 +246,80 @@ class Mesh:
         with self._collective("all_to_all", x.nbytes):
             dist.all_to_all_single(out, wire, group=self.groups[axis])
         return self._from_wire(out)
+
+
+    # ------------------------------------------- collectives over axes
+    def _live_axes(self, axes) -> Tuple[str, ...]:
+        """``axes`` (a name, a tuple of names, or None) as the tuple of
+        those of more than one rank."""
+        if axes is None:
+            return ()
+        if isinstance(axes, str):
+            axes = (axes,)
+        return tuple(a for a in axes if self.shape[a] > 1)
+
+    def all_gather(self, tensors: Sequence[torch.Tensor],
+                   dims: Sequence[int], axes) -> list:
+        """Each tensor of ``tensors`` concatenated along its dim of
+        ``dims`` over the ranks of ``axes`` (a name or a tuple, the first
+        the slowest: blocks in the order of their row-major coordinate), on
+        every one of those ranks.  One message an axis carries all the
+        tensors, packed."""
+        tensors = list(tensors)
+        for a in reversed(self._live_axes(axes)):
+            n = self.shape[a]
+            buf, metas = _pack(tensors)
+            wire = self._to_wire(buf)
+            # staged parts land in pinned memory and go to the card one by
+            # one: no host-side concatenation of the whole
+            parts = [torch.empty(wire.shape, dtype=wire.dtype,
+                                 pin_memory=self._stage)
+                     for _ in range(n)]
+            with self._collective("all_gather", buf.nbytes):
+                dist.all_gather(parts, wire, group=self.groups[a])
+            per_rank = [_unpack(self._from_wire(p), metas) for p in parts]
+            tensors = [torch.cat([r[i] for r in per_rank], dim=d)
+                       for i, d in enumerate(dims)]
+        return tensors
+
+    def all_reduce(self, x: torch.Tensor, axes,
+                   op: str = "sum") -> torch.Tensor:
+        """The elementwise sum (or, ``op='max'``, maximum) of ``x`` over
+        the ranks of ``axes`` (a name or a tuple: one call an axis), in
+        ``x``'s dtype."""
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        for a in self._live_axes(axes):
+            wire = self._to_wire(x)
+            if wire is x:
+                wire = x.clone()
+            with self._collective("all_reduce", x.nbytes):
+                dist.all_reduce(wire, op=red, group=self.groups[a])
+            x = self._from_wire(wire)
+        return x
+
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh gets here."""
+        self.all_reduce_sum(torch.zeros(1, device=self.device))
+
+
+def _pack(tensors: Sequence[torch.Tensor]):
+    """The tensors' bytes in one uint8 buffer, each segment 8-byte aligned,
+    and (offset, dtype, shape, bytes) of each."""
+    segs, metas, off = [], [], 0
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        pad = -b.numel() % _ALIGN
+        segs.append(b)
+        if pad:
+            segs.append(b.new_zeros(pad))
+        metas.append((off, t.dtype, t.shape, b.numel()))
+        off += b.numel() + pad
+    return torch.cat(segs), metas
+
+
+def _unpack(buf: torch.Tensor, metas) -> list:
+    return [buf[o:o + nb].view(dtype).reshape(shape)
+            for o, dtype, shape, nb in metas]
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device="cuda",
@@ -288,20 +392,23 @@ def axis_size(mesh: Mesh, axes) -> int:
 
 def parse_mesh(spec: str, n_devices: int):
     """The LM launchers' ``--mesh`` (the reference's ``launch/train.py``
-    parse_mesh).  The LM runs on one device: ``auto`` on one device and
-    ``1x1`` give the single-device mesh, which the LM takes as ``None``;
-    any other mesh raises (the distributed LM is ROADMAP queue 1 item
-    2c)."""
+    parse_mesh): ``auto`` is (n/2, 2) over n devices, ('data', 'model');
+    explicit dims ``AxB[xC]`` are named ``("pod", "data", "model")[-len:]``.
+    A mesh of one device is ``None`` (the LM runs unsharded); any other is
+    ``(shape, axis names)``, the mesh of ranks to spawn (``run_ranks``),
+    each of which builds it with ``make_mesh``."""
     if spec == "auto":
         dims = (1, 1) if n_devices == 1 else (n_devices // 2, 2)
+        names = ("data", "model")
     else:
         dims = tuple(int(x) for x in spec.split("x"))
-    if math.prod(dims) != 1:
-        raise NotImplementedError(
-            f"--mesh {spec} on {n_devices} device(s) gives a mesh of "
-            f"{math.prod(dims)} devices; the LM port runs on one (the "
-            "distributed LM is ROADMAP queue 1 item 2c)")
-    return None
+        names = ("pod", "data", "model")[-len(dims):]
+    if len(dims) != len(names) or min(dims) < 1:
+        raise ValueError(f"--mesh {spec}: give 'auto' or 2 or 3 dims "
+                         "like 2x2")
+    if math.prod(dims) == 1:
+        return None
+    return dims, names
 
 
 # --------------------------------------------------------------------------- #

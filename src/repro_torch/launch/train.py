@@ -26,7 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.core.pipeline import check_device
 from repro_torch.data.tokens import TokenStream, TokenStreamState
-from repro_torch.launch.mesh import parse_mesh
+from repro_torch.launch.mesh import AbstractMesh, parse_mesh
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
@@ -36,7 +36,7 @@ from repro_torch.train.monitor import StepMonitor
 
 def mesh_shape(spec: str, n_devices: int) -> Dict[str, int]:
     """The mesh ``--mesh`` names, as the reference prints it (its axes and
-    sizes); ``parse_mesh`` has accepted it (one device)."""
+    sizes)."""
     if spec == "auto":
         dims = (1, 1) if n_devices == 1 else (n_devices // 2, 2)
         return dict(zip(("data", "model"), dims))
@@ -81,7 +81,9 @@ def run(args: argparse.Namespace) -> Dict:
     if args.reduced:
         cfg = cfg.reduced()
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    mesh = parse_mesh(args.mesh, n_devices)
+    spec = parse_mesh(args.mesh, n_devices)
+    # a mesh of several devices: make_train_step refuses it (next slice)
+    mesh = None if spec is None else AbstractMesh(*spec)
     print(f"arch={cfg.name} devices={n_devices} "
           f"mesh={mesh_shape(args.mesh, n_devices)}")
 

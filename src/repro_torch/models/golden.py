@@ -22,21 +22,38 @@ package and requires the counts, positions and shapes to be equal and
 every logit to be equal or one bf16 unit in the last place away (the
 logits are bf16 values; XLA's CPU code may round one differently on
 another instruction set).
+
+``jax_lm_sharded_golden.json`` holds the sharded serving path's oracle
+(``load_sharded``): for each reduced config, the JAX package's prefill
+and decode logits (``make_prefill_step`` / ``make_decode_step`` jitted on
+a mesh of Auto axes over host devices: (2, 2) ('data', 'model') for every
+config, and the JAX package's own test's (4, 2) for h2o-danube-1.8b) on
+``seeded_params`` weights and the inputs of ``sharded_inputs``, as
+digests (``digest_rows``), and the JAX package's own spread between its
+sharded and its one-device logits; and its ``psum_int8`` in ``shard_map``
+over 4 host devices and ``pipeline_apply`` over a 'pipe' axis of 4 on the
+inputs of ``collective_inputs``.  ``tests/torch_lm_sharded_cases.py``
+writes it.
 """
 from __future__ import annotations
 
 import json
 import pathlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 PATH = pathlib.Path(__file__).resolve().parent / "jax_lm_golden.json"
+SHARDED_PATH = PATH.with_name("jax_lm_sharded_golden.json")
 
 
 def load() -> Dict:
     return json.loads(PATH.read_text())
+
+
+def load_sharded() -> Dict:
+    return json.loads(SHARDED_PATH.read_text())
 
 
 def inputs(cfg, golden: Dict) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -102,3 +119,131 @@ def deviations(got: Dict[str, torch.Tensor],
         d = float((got[k] - w).abs().max())
         out[k] = d if w.ndim == 0 else d / float(w.abs().max())
     return out
+
+
+# --------------------------------------------------------------------------- #
+# The sharded serving path
+# --------------------------------------------------------------------------- #
+def sharded_inputs(cfg, golden: Dict) -> Tuple[torch.Tensor,
+                                                Optional[torch.Tensor]]:
+    """The sharded golden's tokens (batch, seq + 1) int32 (a prompt of
+    ``seq`` and one token to decode) and context stub (batch,
+    n_ctx_tokens, d_model) bf16, or None."""
+    B, S = golden["batch"], golden["seq"]
+    tokens = np.random.default_rng(golden["tokens_seed"]).integers(
+        0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    ctx = None
+    if cfg.n_ctx_tokens:
+        ctx = torch.from_numpy(np.random.default_rng(golden["ctx_seed"])
+                               .normal(0, 1, (B, cfg.n_ctx_tokens,
+                                              cfg.d_model))
+                               .astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(tokens), ctx
+
+
+def prefill_decode(params: Dict, cfg, tokens: torch.Tensor,
+                   ctx: Optional[torch.Tensor], golden: Dict, mesh=None,
+                   kv_dtype=torch.bfloat16):
+    """The prefill's last-position logits over all but the last token and
+    the decode step's on the last, with a ``kv_dtype`` cache (on a mesh:
+    the rank's parameter blocks and cache, the whole inputs and logits)."""
+    from repro_torch.models import model as M
+    B, S = tokens.shape[0], tokens.shape[1] - 1
+    cache = M.init_cache(cfg, B, golden["max_len"], kv_dtype, tokens.device,
+                         mesh=mesh)
+    prefill, cache = M.prefill(params, tokens[:, :S], cfg, cache=cache,
+                               ctx=ctx, mesh=mesh)
+    decode, _ = M.decode_step(params, tokens[:, S:], cfg, cache=cache,
+                              cache_index=S, ctx=ctx, mesh=mesh)
+    return prefill, decode
+
+
+def serve_outputs(params: Dict, cfg, tokens: torch.Tensor,
+                  ctx: Optional[torch.Tensor], golden: Dict,
+                  mesh=None) -> Dict[str, np.ndarray]:
+    """What the sharded checks compare, on the tokens' device: the prefill
+    and decode logits (``prefill_decode``) with a bf16 and with an int8 KV
+    cache, and the forward's at the last position, each (batch, vocab)
+    f32 as numpy."""
+    from repro_torch.models import model as M
+    out = {}
+    for name, kv in (("", torch.bfloat16), ("_int8", torch.int8)):
+        out["prefill" + name], out["decode" + name] = prefill_decode(
+            params, cfg, tokens, ctx, golden, mesh, kv)
+    out["forward"] = M.forward(params, tokens, cfg, ctx=ctx,
+                               mesh=mesh)[0][:, -1]
+    return {k: v.detach().float().cpu().numpy() for k, v in out.items()}
+
+
+def digest_rows(x, golden: Dict) -> Dict:
+    """max|x| and every ``stride``-th vocabulary entry of each row of
+    (batch, vocab) logits."""
+    x = np.asarray(x, dtype=np.float32)
+    return dict(max_abs=float(np.abs(x).max()),
+                rows=x[:, ::golden["stride"]].tolist())
+
+
+def collective_inputs() -> Dict[str, np.ndarray]:
+    """The sharded golden's collective inputs: ``x`` (4, 1000) f32, one
+    row a rank, for ``psum_int8``; ``pipe_w`` (4, 16, 16) and ``pipe_x``
+    (8, 16) f32 for ``pipeline_apply`` with the stage ``tanh(x @ w)``."""
+    rng = np.random.default_rng(0)
+    return dict(x=(rng.standard_normal((4, 1000)) * 3).astype(np.float32),
+                pipe_w=(rng.standard_normal((4, 16, 16)) * 0.3)
+                .astype(np.float32),
+                pipe_x=rng.standard_normal((8, 16)).astype(np.float32))
+
+
+def serve_reduced(golden: Dict, device, mesh=None) -> Dict[str, Dict]:
+    """``serve_outputs`` of every reduced config on ``seeded_params``
+    weights and the sharded golden's inputs, on ``device`` (on a mesh: the
+    rank's blocks)."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import model as M
+    out = {}
+    for arch in sorted(ARCHS):
+        cfg = get_config(arch).reduced()
+        tokens, ctx = sharded_inputs(cfg, golden)
+        out[arch] = serve_outputs(
+            M.seeded_params(cfg, golden["weights_seed"], device, mesh=mesh),
+            cfg, tokens.to(device), None if ctx is None else ctx.to(device),
+            golden, mesh)
+    return out
+
+
+def sharded_deviations(arch: str, ranks: List[Dict[str, np.ndarray]],
+                       want: Dict[str, np.ndarray],
+                       golden: Dict) -> Tuple[Dict[str, float], List[str]]:
+    """Hold the ranks' ``serve_outputs`` of a reduced config against one
+    device's (``want``) and the JAX package's sharded golden.  Returns the
+    deviations of rank 0 (each key of ``want``, max|Δ| over max|want|;
+    ``jax_prefill``/``jax_decode`` against the golden's digests) and what
+    failed: a deviation over the family's bound, a rank whose outputs
+    differ from rank 0's."""
+    from repro_torch.configs import get_config
+    tol = golden["tolerance"][get_config(arch).family]
+    got = ranks[0]
+    d = {k: float(np.abs(got[k] - v).max() / np.abs(v).max())
+         for k, v in want.items()}
+    case = golden["cases"][f"{arch} (2, 2)"]
+    d.update({f"jax_{k}": rel_err(digest_rows(got[k], golden), case[k])
+              for k in ("prefill", "decode")})
+    failed = [f"{arch}-reduced {k} {v} (limit {tol})"
+              for k, v in d.items() if not v <= tol]
+    failed += [f"{arch}-reduced: rank {i}'s {k} differs from rank 0's"
+               for i, r in enumerate(ranks[1:], 1) for k in got
+               if not np.array_equal(r[k], got[k])]
+    return d, failed
+
+
+def psum_int8_host(rows: np.ndarray) -> np.ndarray:
+    """``psum_int8`` of ``rows`` (one a rank) computed on the host, the
+    algorithm step by step: each row quantized, requantized to the largest
+    scale, summed in int32 and rescaled."""
+    from repro_torch.distributed.collectives import quantize_int8
+    x = torch.from_numpy(rows)
+    qs = [quantize_int8(r) for r in x]
+    smax = torch.stack([s for _, s, _ in qs]).amax(0)
+    acc = sum(torch.clamp(torch.round(q.float() * (s / smax)), -127, 127)
+              .to(torch.int8).to(torch.int32) for q, s, _ in qs)
+    return (acc.float() * smax).reshape(-1)[:x.shape[1]].numpy()

@@ -5,6 +5,15 @@ Attention is an online-softmax loop over KV chunks (never the full (S, T)
 score matrix), in the reference's order of operations: its chunk size,
 its ``NEG_INF`` mask value and its f32 accumulation.
 
+On a mesh (``part``) attention runs over this rank's heads: the q, k and
+v projections are column-parallel and ``wo`` row-parallel (its partial
+output summed over 'model').  Where the heads do not divide over 'model'
+(granite's single KV head, whose cache ``cache_spec`` splits on head_dim)
+the projections are gathered whole, the cache keeps the rank's block and
+is gathered to attend, and each of the rank's query heads attends to its
+own KV head (GQA's grouping, head by head).  The SwiGLU MLP is column-
+then row-parallel.
+
 Dtypes follow the reference's: a product of two bf16 operands that the
 reference asks for in f32 (``preferred_element_type=F32``) upcasts both
 operands first (``einsum(..., f32=True)``), so it is never rounded to bf16;
@@ -18,6 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import part
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -66,11 +77,25 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, mesh=None, d_ff: int = 0) -> torch.Tensor:
+    """On a mesh, ``d_ff`` is the whole hidden width: a rank holding fewer
+    rows of ``w_down`` has a partial output, summed over 'model'."""
     g = einsum("bsd,df->bsf", x, w_gate)
     u = einsum("bsd,df->bsf", x, w_up)
     h = F.silu(g.to(F32)).to(x.dtype) * u
+    if w_down.shape[0] < d_ff:
+        return row_parallel(h, w_down, mesh)
     return einsum("bsf,fd->bsd", h, w_down)
+
+
+def row_parallel(a: torch.Tensor, b: torch.Tensor, mesh) -> torch.Tensor:
+    """``a @ b`` whose contracted dim lies over 'model' (b (K, N), or
+    (G, K, N) against a (G, M, K)): the rank's partial sum in f32, summed
+    over 'model' and rounded to the operands' dtype once, as one device
+    rounds its single f32 accumulation."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    eq = "...k,kn->...n" if b.ndim == 2 else "gmk,gkn->gmn"
+    return part.tp_sum(einsum(eq, a, b, f32=True), mesh, dtype)
 
 
 class AttnSpec(NamedTuple):
@@ -162,6 +187,77 @@ def update_slice(buf: torch.Tensor, val: torch.Tensor,
     return buf
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor, n: int, D: int,
+                  mesh=None) -> torch.Tensor:
+    """``x @ w`` as (B, S, heads, D).  On a mesh: the rank's heads where
+    ``w``'s columns lie over 'model' and ``n`` divides, else all ``n``
+    (the columns gathered)."""
+    if not part.sharded(mesh):
+        return einsum("bsd,dhx->bshx", x, w.reshape(x.shape[-1], n, D))
+    t = einsum("bsd,dx->bsx", x, w)
+    if t.shape[-1] < n * D and n % part.tp_size(mesh):
+        t = part.tp_gather(t, -1, mesh)
+    return t.reshape(*t.shape[:2], -1, D)
+
+
+def project_out(out: torch.Tensor, wo: torch.Tensor, n: int, D: int,
+                mesh=None) -> torch.Tensor:
+    """(B, S, heads, D) @ wo.  On a mesh ``wo``'s rows over 'model' make
+    it row-parallel: the rank's rows of the heads it computed (all of
+    them, or its own), a partial sum over 'model'."""
+    if not part.sharded(mesh):
+        return einsum("bshx,hxd->bsd", out, wo.reshape(n, D, -1))
+    o = out.reshape(*out.shape[:2], -1)
+    rows = wo.shape[0]
+    if rows == n * D:
+        return einsum("bsx,xd->bsd", o, wo)
+    return row_parallel(part.tp_block(o, -1, rows, mesh), wo, mesh)
+
+
+def store_kv(buf: torch.Tensor, val: torch.Tensor, index,
+             mesh=None) -> torch.Tensor:
+    """Write ``val`` into the rank's cache block ``buf`` at ``index``:
+    its head_dim block where the cache splits head_dim over 'model'."""
+    if buf.shape[-1] < val.shape[-1]:
+        val = part.tp_block(val, -1, buf.shape[-1], mesh)
+    return update_slice(buf, val, index)
+
+
+def whole_kv(buf: torch.Tensor, D: int, mesh=None) -> torch.Tensor:
+    """The cache as attention reads it: a head_dim split gathered."""
+    if buf.shape[-1] < D:
+        return part.tp_gather(buf, -1, mesh)
+    return buf
+
+
+def _own_kv(q: torch.Tensor, kv, H: int, K: int, mesh):
+    """The KV heads of the rank's query heads, where the rank computes its
+    own query heads against all K KV heads (query head h attends to KV
+    head h // (H / K)): the run of KV heads they use, when each of those
+    serves as many of them (GQA's grouping kept), else one a query
+    head."""
+    Hl = q.shape[2]
+    k0 = kv[0] if isinstance(kv, tuple) else kv
+    if Hl == H or k0.shape[2] < K:
+        return kv
+    q0, G = part.tp_index(mesh) * Hl, H // K
+    lo, hi = q0 // G, (q0 + Hl - 1) // G + 1
+    if Hl % (hi - lo) == 0 and all(
+            (q0 + j) // G - lo == j // (Hl // (hi - lo)) for j in range(Hl)):
+        pick = lambda t: t[:, :, lo:hi]
+    else:
+        idx = torch.tensor([(q0 + j) // G for j in range(Hl)],
+                           device=q.device)
+        pick = lambda t: t[:, :, idx]
+    return tuple(map(pick, kv)) if isinstance(kv, tuple) else pick(kv)
+
+
+def attend(q, k, v, H: int, K: int, mesh=None, **kw) -> torch.Tensor:
+    """``mha_online`` of the rank's query heads (``_own_kv``)."""
+    return mha_online(q, _own_kv(q, k, H, K, mesh), _own_kv(q, v, H, K, mesh),
+                      **kw)
+
+
 def attention(x: torch.Tensor, p: dict, spec: AttnSpec, *,
               pos: torch.Tensor, cache: Optional[dict] = None,
               cache_index=None, ctx_kv: Optional[tuple] = None, mesh=None):
@@ -170,17 +266,17 @@ def attention(x: torch.Tensor, p: dict, spec: AttnSpec, *,
     x: (B, S, d).  p: {'wq','wk','wv','wo'[, 'q_norm','k_norm']}.
     pos: (S,) absolute positions of x.
     cache: {'k','v'} (B, T_max, K, D), or the int8 layout {'k', 'k_scale',
-    'v', 'v_scale'}: updated in place and returned.
+    'v', 'v_scale'}: updated in place and returned (on a mesh, the rank's
+    blocks).
     ctx_kv: (k, v) precomputed cross-attention KV (overrides x-derived kv).
     """
     from repro_torch.models.part import constrain
-    B, S, d = x.shape
     H, K, D = spec.n_heads, spec.n_kv, spec.d_head
-    q = einsum("bsd,dhx->bshx", x, p["wq"].reshape(d, H, D))
+    q = project_heads(x, p["wq"], H, D, mesh)
     q = constrain(q, mesh, ("dp", None, "tp", None))
     if ctx_kv is None:
-        k = einsum("bsd,dhx->bshx", x, p["wk"].reshape(d, K, D))
-        v = einsum("bsd,dhx->bshx", x, p["wv"].reshape(d, K, D))
+        k = project_heads(x, p["wk"], K, D, mesh)
+        v = project_heads(x, p["wv"], K, D, mesh)
         k = constrain(k, mesh, ("dp", None, "tp", None))
         v = constrain(v, mesh, ("dp", None, "tp", None))
     else:
@@ -193,14 +289,16 @@ def attention(x: torch.Tensor, p: dict, spec: AttnSpec, *,
         q = apply_rope(q, pos, spec.rope_theta)
         k = apply_rope(k, pos, spec.rope_theta)
 
+    S = x.shape[1]
     new_cache = cache
+    grouped = dict(H=H, K=K, mesh=mesh, chunk=spec.kv_chunk)
     if ctx_kv is not None:
         # cross-attention: full-context bidirectional over ctx
-        out = mha_online(q, k, v, causal=False, window=None, q_offset=0,
-                         valid_len=k.shape[1], chunk=spec.kv_chunk)
+        out = attend(q, k, v, causal=False, window=None, q_offset=0,
+                     valid_len=k.shape[1], **grouped)
     elif cache is None:
-        out = mha_online(q, k, v, causal=spec.causal, window=spec.window,
-                         q_offset=0, valid_len=S, chunk=spec.kv_chunk)
+        out = attend(q, k, v, causal=spec.causal, window=spec.window,
+                     q_offset=0, valid_len=S, **grouped)
     elif "k_scale" in cache:
         # int8 KV cache: per-(token, head) block scales; dequantization
         # happens per chunk inside the online-softmax loop
@@ -208,22 +306,24 @@ def attention(x: torch.Tensor, p: dict, spec: AttnSpec, *,
         kq, ks = quantize_kv_int8(k)
         vq, vs = quantize_kv_int8(v)
         new_cache = dict(
-            k=update_slice(cache["k"], kq, cache_index),
-            k_scale=update_slice(cache["k_scale"], ks, cache_index),
-            v=update_slice(cache["v"], vq, cache_index),
-            v_scale=update_slice(cache["v_scale"], vs, cache_index))
-        out = mha_online(q, (new_cache["k"], new_cache["k_scale"]),
-                         (new_cache["v"], new_cache["v_scale"]),
-                         causal=spec.causal, window=spec.window,
-                         q_offset=cache_index, valid_len=cache_index + S,
-                         chunk=spec.kv_chunk)
+            k=store_kv(cache["k"], kq, cache_index, mesh),
+            k_scale=store_kv(cache["k_scale"], ks, cache_index, mesh),
+            v=store_kv(cache["v"], vq, cache_index, mesh),
+            v_scale=store_kv(cache["v_scale"], vs, cache_index, mesh))
+        out = attend(q, (whole_kv(new_cache["k"], D, mesh),
+                         new_cache["k_scale"]),
+                     (whole_kv(new_cache["v"], D, mesh),
+                      new_cache["v_scale"]),
+                     causal=spec.causal, window=spec.window,
+                     q_offset=cache_index, valid_len=cache_index + S,
+                     **grouped)
     else:
-        ck = update_slice(cache["k"], k, cache_index)
-        cv = update_slice(cache["v"], v, cache_index)
+        ck = store_kv(cache["k"], k, cache_index, mesh)
+        cv = store_kv(cache["v"], v, cache_index, mesh)
         new_cache = dict(k=ck, v=cv)
-        out = mha_online(q, ck.to(q.dtype), cv.to(q.dtype),
-                         causal=spec.causal, window=spec.window,
-                         q_offset=cache_index, valid_len=cache_index + S,
-                         chunk=spec.kv_chunk)
-    y = einsum("bshx,hxd->bsd", out, p["wo"].reshape(H, D, d))
-    return y, new_cache
+        out = attend(q, whole_kv(ck, D, mesh).to(q.dtype),
+                     whole_kv(cv, D, mesh).to(q.dtype),
+                     causal=spec.causal, window=spec.window,
+                     q_offset=cache_index, valid_len=cache_index + S,
+                     **grouped)
+    return project_out(out, p["wo"], H, D, mesh), new_cache

@@ -7,6 +7,15 @@ by "."), and the KV/SSM cache is a nested dict of tensors that prefill and
 decode update in place (the reference donates it).  ``abstract_params`` and
 ``abstract_cache`` build the same trees on the meta device: shapes and
 dtypes, nothing allocated.
+
+On a mesh of several devices (``launch.mesh.Mesh``, one process a rank;
+``part`` says how the layers split the work) a rank holds only its
+blocks: ``init_params``, ``seeded_params`` and ``load_numpy_params`` cut
+each leaf as it is made (``distributed.sharding.param_spec``), bit for bit
+the one-device tensors' blocks, and ``init_cache`` allocates the rank's
+cache blocks (``cache_spec``).  ``forward``, ``prefill`` and
+``decode_step`` then take the whole batch on every rank (each computes its
+rows: ``batch_specs``) and return the whole logits on every rank.
 """
 from __future__ import annotations
 
@@ -21,28 +30,34 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pipeline import check_device
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.part import check_mesh, constrain
+from repro_torch.distributed.sharding import (block, cache_shardings,
+                                             local_shape)
+from repro_torch.models import part
+from repro_torch.models.part import constrain
 
 F32 = torch.float32
 BF16 = torch.bfloat16
 
 
 def init_params(cfg: ArchConfig, rng: Optional[torch.Generator],
-                device="cuda") -> Dict:
+                device="cuda", mesh=None) -> Dict:
     """Random parameters from ``rng`` (a generator on ``device``), with the
-    reference's key paths, shapes, dtypes and scales.  The draws are
-    torch's, so the weights differ from the reference's ``jax.random``
-    ones: to run the reference's weights, use ``load_numpy_params``."""
+    reference's key paths, shapes, dtypes and scales (on a mesh, the rank's
+    blocks of them).  The draws are torch's, so the weights differ from
+    the reference's ``jax.random`` ones: to run the reference's weights,
+    use ``load_numpy_params``."""
     device = check_device(device)
-    return T.init_params(cfg, rng, device)
+    return T.init_params(cfg, rng, device, mesh)
 
 
-def seeded_params(cfg: ArchConfig, seed: int, device="cuda") -> Dict:
+def seeded_params(cfg: ArchConfig, seed: int, device="cuda",
+                  mesh=None) -> Dict:
     """Random parameters drawn on the host from numpy's generator seeded
     ``seed`` (PCG64), then moved to ``device``: the same weights on every
-    host, card and torch version (the goldens' weights)."""
+    host, card and torch version (the goldens' weights); on a mesh, the
+    rank's blocks of them."""
     device = check_device(device)
-    tree = T.init_params(cfg, np.random.default_rng(seed), "cpu")
+    tree = T.init_params(cfg, np.random.default_rng(seed), "cpu", mesh)
     return tree_map(lambda t: t.to(device), tree)
 
 
@@ -81,13 +96,17 @@ def unflatten(flat: Dict[str, object]) -> Dict:
     return tree
 
 
-def load_numpy_params(cfg: ArchConfig, tree: Dict, device) -> Dict:
+def load_numpy_params(cfg: ArchConfig, tree: Dict, device,
+                      mesh=None) -> Dict:
     """The reference's parameters, a nested dict of numpy arrays, as the
-    port's tree on ``device``.  bf16 leaves arrive as their uint16 bit
-    patterns (``.view(np.uint16)``) and are reinterpreted as bf16; every
-    key, shape and dtype must match ``abstract_params(cfg)``."""
+    port's tree on ``device`` (on a mesh, the rank's blocks of them).
+    bf16 leaves arrive as their uint16 bit patterns (``.view(np.uint16)``)
+    and are reinterpreted as bf16; every key, shape and dtype must match
+    ``abstract_params(cfg)``."""
     device = check_device(device)
     want = flatten(abstract_params(cfg))
+    specs = (flatten(part.param_specs(cfg, mesh)) if part.sharded(mesh)
+             else {})
     got = flatten(tree)
     if set(got) != set(want):
         raise ValueError(
@@ -104,6 +123,8 @@ def load_numpy_params(cfg: ArchConfig, tree: Dict, device) -> Dict:
                 f"{cfg.name}: {path} is {arr.dtype}{tuple(arr.shape)}, "
                 f"expected {dt}{tuple(ref.shape)}"
                 + (" (bf16 as its uint16 bits)" if bits else ""))
+        if path in specs:
+            arr = block(arr, specs[path], mesh)
         t = torch.from_numpy(np.array(arr))          # a writable copy
         out[path] = (t.view(BF16) if bits else t).to(device)
     return unflatten(out)
@@ -177,8 +198,19 @@ def _slot_cache(cfg: ArchConfig, kind: str, G: int, B: int, T_max: int,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, kv_dtype=BF16,
-               device="cuda") -> Dict:
+               device="cuda", mesh=None) -> Dict:
+    """The zero cache of ``batch`` rows and ``max_len`` positions (on a
+    mesh of several devices, the rank's blocks of it: ``cache_spec``)."""
     device = check_device(device)
+    if part.sharded(mesh):
+        abstract = abstract_cache(cfg, batch, max_len, kv_dtype)
+
+        def local(a, sh):
+            if isinstance(a, dict):
+                return {k: local(v, sh[k]) for k, v in a.items()}
+            return torch.zeros(local_shape(tuple(a.shape), sh.spec, mesh),
+                               dtype=a.dtype, device=device)
+        return local(abstract, cache_shardings(abstract, mesh))
     pattern = T.layer_pattern(cfg)
     G = T.n_groups(cfg)
     return {f"slot{j}": _slot_cache(cfg, kind, G, batch, max_len, kv_dtype,
@@ -214,11 +246,40 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     """tokens: (B, S) int32.  ctx: (B, Tc, d_model) stub embeddings for
     vlm/audio.  cache_index: a python int (the host keeps the position).
     Returns (logits (B,S,V) f32, new_cache, aux); the cache is updated in
-    place and returned."""
-    check_mesh(mesh)
+    place and returned.  On a mesh of several devices ``params`` and
+    ``cache`` are the rank's blocks, ``tokens`` and ``ctx`` the whole
+    batch, and the logits come back whole on every rank."""
+    logits, new_cache, aux = _forward(params, tokens, cfg, ctx, cache,
+                                      cache_index, remat, mesh)
+    return _whole_logits(logits, cfg, mesh, tokens.shape[0]), new_cache, aux
+
+
+def _forward(params, tokens, cfg, ctx, cache, cache_index, remat, mesh):
+    """``forward`` with the rank's logits: (its rows, S, its vocab block)
+    on a mesh of several devices."""
+    specs, bax = None, ()
+    if part.sharded(mesh):
+        specs = part.param_specs(cfg, mesh)
+        bax = part.batch_axes(mesh, tokens.shape[0])
+        tokens = part.batch_block(tokens, bax, mesh)
+        ctx = part.batch_block(ctx, bax, mesh)
     B, S = tokens.shape
-    # the reference's one-hot matmul under a mesh gathers the same rows
-    x = torch.nn.functional.embedding(tokens, params["embed"])
+    embed, head = params["embed"], params.get("lm_head")
+    if specs is not None:
+        outer = {k: params[k] for k in ("embed", "lm_head") if k in params}
+        outer = part.gather_fsdp(outer, {k: specs[k] for k in outer}, mesh)
+        embed, head = outer["embed"], outer.get("lm_head")
+    if embed.shape[0] == cfg.vocab:
+        # the reference's one-hot matmul under a mesh gathers the same rows
+        x = torch.nn.functional.embedding(tokens, embed)
+    else:
+        # the rank's vocabulary rows (the reference's one-hot product over
+        # the 'model'-split table): its tokens' rows, zero elsewhere, summed
+        # over 'model' (one term a token: exact)
+        i = tokens - part.tp_index(mesh) * embed.shape[0]
+        own = (i >= 0) & (i < embed.shape[0])
+        x = torch.nn.functional.embedding(torch.where(own, i, 0), embed)
+        x = part.tp_sum(x * own[..., None].to(x.dtype), mesh)
     x = constrain(x, mesh, ("dp", None, None))
     if cache is None:
         pos = torch.arange(S, device=x.device)
@@ -229,15 +290,28 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
            if ctx is not None else None)
     x, new_cache, aux = T.run_stack(params["blocks"], x, cfg, pos=pos,
                                     cache=cache, cache_index=cache_index,
-                                    ctx=enc, remat=remat, mesh=mesh)
+                                    ctx=enc, remat=remat, mesh=mesh,
+                                    batch_axes=bax)
     x = rms_norm(x, params["final_norm"])
-    head = params.get("lm_head")
     if head is None:
-        head = params["embed"].T
+        head = embed.T
     # the logits are rounded to bf16 once, as the reference's einsum of
     # two bf16 operands is, then widened
     logits = torch.matmul(x, head).to(F32)
     return logits, new_cache, aux
+
+
+def _whole_logits(logits: torch.Tensor, cfg: ArchConfig, mesh,
+                  batch: int) -> torch.Tensor:
+    """The rank's logits (rows, ..., vocabulary block) made whole."""
+    if not part.sharded(mesh):
+        return logits
+    if logits.shape[-1] < cfg.vocab:
+        logits = part.tp_gather(logits, -1, mesh)
+    bax = part.batch_axes(mesh, batch)
+    if bax:
+        logits = mesh.all_gather([logits], [0], bax)[0]
+    return logits
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig,
@@ -265,6 +339,7 @@ def value_and_grad(params: Dict, batch: Dict, cfg: ArchConfig, mesh=None,
     """``jax.value_and_grad(loss_fn, has_aux=True)``: ((loss, parts),
     grads), the gradients a tree like ``params`` (each leaf's dtype), by
     autograd through ``loss_fn`` on leaves detached from ``params``."""
+    part.check_trainable(mesh)
     flat = flatten(params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
     with torch.enable_grad():
@@ -279,19 +354,20 @@ def value_and_grad(params: Dict, batch: Dict, cfg: ArchConfig, mesh=None,
 def prefill(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             cache: Dict, ctx: Optional[torch.Tensor] = None, mesh=None):
     """Write the prompt into the cache; return last-position logits."""
-    logits, new_cache, _ = forward(params, tokens, cfg, ctx=ctx, cache=cache,
-                                   cache_index=0, mesh=mesh)
-    return logits[:, -1, :], new_cache
+    logits, new_cache, _ = _forward(params, tokens, cfg, ctx, cache, 0,
+                                    True, mesh)
+    return _whole_logits(logits[:, -1, :], cfg, mesh,
+                         tokens.shape[0]), new_cache
 
 
 def decode_step(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,
                 cache: Dict, cache_index,
                 ctx: Optional[torch.Tensor] = None, mesh=None):
     """tokens: (B, 1) — one decode step at position cache_index."""
-    logits, new_cache, _ = forward(params, tokens, cfg, ctx=ctx, cache=cache,
-                                   cache_index=cache_index, remat=False,
-                                   mesh=mesh)
-    return logits[:, -1, :], new_cache
+    logits, new_cache, _ = _forward(params, tokens, cfg, ctx, cache,
+                                    cache_index, False, mesh)
+    return _whole_logits(logits[:, -1, :], cfg, mesh,
+                         tokens.shape[0]), new_cache
 
 
 def param_count(cfg: ArchConfig) -> int:

@@ -5,6 +5,14 @@ Tokens are processed in groups of GROUP tokens, padded with all-zero rows
 to a whole number of groups; each expert takes at most ``capacity`` tokens
 of a group.  The dispatch and combine tensors, their dtypes and the Switch
 load-balance loss are the reference's.
+
+On a mesh the experts lie over 'model' (EP): the router's logits are
+gathered whole before top-k, every rank routes the token groups alike, and
+a rank computes its own experts' slots (a partial output summed over
+'model'), the shared expert column- then row-parallel.  Token groups are
+the whole batch's, as on one device: where the rank's rows do not form
+whole groups its tokens are gathered over the DP axes first, so capacity
+drops the tokens one device drops.
 """
 from __future__ import annotations
 
@@ -15,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import einsum
+from repro_torch.launch.mesh import axis_size
+from repro_torch.models import part
+from repro_torch.models.layers import einsum, row_parallel
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -36,18 +46,25 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig,
-            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, mesh=None,
+            batch_axes=()) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d).  p: {'router' (d,E), 'w_gate','w_up' (E,d,f),
     'w_down' (E,f,d)[, shared expert 'sh_gate','sh_up','sh_down']}.
 
     Returns (y (B,S,d), aux_loss scalar) — aux is the standard load-balance
     loss (mean fraction * mean prob * E), padded tokens included as in the
-    reference."""
+    reference.  On a mesh, x is the rank's rows of a batch split over
+    ``batch_axes``."""
     from repro_torch.models.part import constrain
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg)
+    # the whole batch's groups: a rank whose rows are not whole groups
+    # routes every rank's tokens and keeps its own rows' outputs
+    whole = bool(batch_axes) and (B * S) % GROUP != 0
+    if whole:
+        x = mesh.all_gather([x], [0], batch_axes)[0]
+        B = x.shape[0]
     T = B * S
     Tp = -(-T // GROUP) * GROUP                # pad to a group multiple
     xf = x.reshape(T, d)
@@ -59,6 +76,8 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig,
     t_valid = (torch.arange(Tp, device=x.device) < T).reshape(nG, GROUP)
 
     logits = einsum("gtd,de->gte", xg, p["router"]).to(F32)
+    if logits.shape[-1] < E:                   # the router's E over 'model'
+        logits = part.tp_gather(logits, -1, mesh)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = _top_k(probs, k)                 # (nG, T, k)
     gate_vals = gate_vals / torch.clamp(
@@ -66,8 +85,14 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig,
 
     # load-balance aux loss (Switch): E * mean(fraction_e) * mean(prob_e)
     top1 = F.one_hot(gate_idx[..., 0], E).to(F32)
-    aux = E * torch.mean(torch.mean(top1, dim=(0, 1)) *
-                         torch.mean(probs, dim=(0, 1)))
+    frac, prob = torch.mean(top1, dim=(0, 1)), torch.mean(probs, dim=(0, 1))
+    if batch_axes and not whole:
+        # the rank holds whole groups, as many as every other: the batch's
+        # means are the means of the ranks'
+        n = axis_size(mesh, batch_axes)
+        both = mesh.all_reduce(torch.stack([frac, prob]), batch_axes) / n
+        frac, prob = both[0], both[1]
+    aux = E * torch.mean(frac * prob)
 
     # --- capacity-constrained dispatch/combine masks -----------------------
     dispatch = torch.zeros((nG, GROUP, E, C), dtype=BF16, device=x.device)
@@ -86,20 +111,33 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig,
         dispatch = dispatch + pc
         combine = combine + pc * gate_vals[..., s][..., None, None].to(BF16)
 
-    # --- expert compute --------------------------------------------------
+    # --- expert compute (the rank's experts on a mesh) --------------------
+    E_loc = p["w_gate"].shape[0]
+    if E_loc < E:
+        dispatch = part.tp_block(dispatch, 2, E_loc, mesh)
+        combine = part.tp_block(combine, 2, E_loc, mesh)
     xg = constrain(xg, mesh, ("dp", None, None))
     xe = einsum("gtec,gtd->gecd", dispatch, xg)                    # (nG,E,C,d)
     h_g = einsum("gecd,edf->gecf", xe, p["w_gate"])
     h_u = einsum("gecd,edf->gecf", xe, p["w_up"])
     h = F.silu(h_g.to(F32)).to(xe.dtype) * h_u
     ye = einsum("gecf,efd->gecd", h, p["w_down"])
-    y = einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
+    if E_loc < E:
+        y = row_parallel(combine.to(ye.dtype).reshape(nG, GROUP, -1),
+                         ye.reshape(nG, -1, d), mesh)
+    else:
+        y = einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
 
     if cfg.n_shared_experts:
         g = einsum("gtd,df->gtf", xg, p["sh_gate"])
         u = einsum("gtd,df->gtf", xg, p["sh_up"])
         sh = F.silu(g.to(F32)).to(xg.dtype) * u
-        y = y + einsum("gtf,fd->gtd", sh, p["sh_down"])
+        if p["sh_down"].shape[0] < cfg.d_ff_expert * cfg.n_shared_experts:
+            y = y + row_parallel(sh, p["sh_down"], mesh)
+        else:
+            y = y + einsum("gtf,fd->gtd", sh, p["sh_down"])
 
-    y = y.reshape(Tp, d)[:T]
-    return y.reshape(B, S, d), aux
+    y = y.reshape(Tp, d)[:T].reshape(B, S, d)
+    if whole:
+        y = part.batch_block(y, batch_axes, mesh)
+    return y, aux

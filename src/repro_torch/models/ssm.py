@@ -5,6 +5,13 @@ y_t = C_t h_t + D x_t  (scalar A per head) is evaluated chunk-wise
 (arXiv:2405.21060 Alg. 1): within a chunk the quadratic "attention-like"
 matmul form; across chunks a small state (B,H,N,P) carried by a loop over
 chunks — O(S) total.  Dtypes and rounding points are the reference's.
+
+On a mesh the block computes every head on every rank of a 'model' line,
+as the reference's constraint of ``zxbcdt`` to ('dp', None, None) asks:
+``in_proj``'s columns are gathered, the cache's ``state`` (split on heads)
+and ``conv`` (split on d_inner) are gathered to run the step and the rank
+keeps its blocks of the new ones, and ``out_proj`` is row-parallel (the
+rank's rows of the gated output, a partial sum over 'model').
 """
 from __future__ import annotations
 
@@ -14,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import einsum, rms_norm
+from repro_torch.models import part
+from repro_torch.models.layers import einsum, rms_norm, row_parallel
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -119,6 +127,8 @@ def ssd_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     Bb, S, d = x.shape
     H, N, P = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
     zxbcdt = einsum("bsd,de->bse", x, p["in_proj"])
+    if zxbcdt.shape[-1] < 2 * cfg.d_inner + 2 * N + H:
+        zxbcdt = part.tp_gather(zxbcdt, -1, mesh)
     zxbcdt = constrain(zxbcdt, mesh, ("dp", None, None))
     z, xs, B_, C_, dt_raw = _split_proj(zxbcdt, cfg)
     dt_in = dt_raw.to(F32) + p["dt_bias"].to(F32)
@@ -126,6 +136,12 @@ def ssd_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     A = -torch.exp(p["A_log"].to(F32))
 
     new_cache = cache
+    blocks = cache
+    if cache is not None and part.tp_size(mesh) > 1:
+        # the whole state and conv tail this step reads and writes; the
+        # rank's blocks are copied back below
+        cache = dict(conv=_whole(cache["conv"], -1, cfg.d_inner, mesh),
+                     state=_whole(cache["state"], 1, H, mesh))
     if cache is None:
         xc, _ = _causal_conv(xs, p["conv_w"])
         xh = xc.reshape(Bb, S, H, P)
@@ -151,10 +167,26 @@ def ssd_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
         cache["conv"].copy_(conv_state)
         cache["state"].copy_(state)
 
+    if blocks is not cache:
+        for k, dim in (("conv", -1), ("state", 1)):
+            blocks[k].copy_(part.tp_block(cache[k], dim,
+                                          blocks[k].shape[dim], mesh))
+
     # D skip connection on the (conv'd) input heads
     y = y + xh.to(F32) * p["D"].to(F32)[None, None, :, None]
     y = y.reshape(Bb, S, H * P).to(x.dtype)
     # gated RMSNorm (Mamba-2): norm(y * silu(z))
     y = rms_norm(y * F.silu(z.to(F32)).to(x.dtype), p["gate_norm"])
+    rows = p["out_proj"].shape[0]
+    if rows < y.shape[-1]:                   # out_proj's rows over 'model'
+        y = part.tp_block(y, -1, rows, mesh)
+        return row_parallel(y, p["out_proj"], mesh), new_cache
     out = einsum("bse,ed->bsd", y, p["out_proj"])
     return out, new_cache
+
+
+def _whole(t: torch.Tensor, dim: int, n: int, mesh) -> torch.Tensor:
+    """A cache block made whole along ``dim`` (n entries), a new tensor."""
+    if t.shape[dim] < n:
+        return part.tp_gather(t, dim, mesh)
+    return t.clone()

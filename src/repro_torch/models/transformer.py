@@ -5,7 +5,10 @@ parameter layout: the layer pattern (e.g. Llama-4's [dense, moe],
 Llama-3.2-Vision's [self x4, cross]) repeats n_layers/len(pattern) times,
 and parameters are stacked per pattern slot with a leading group axis G.
 The reference scans the groups (``lax.scan``); the port loops over them
-in Python, indexing each stacked tensor at the group.
+in Python, indexing each stacked tensor at the group.  On a mesh each
+group's leaves are gathered over the DP axes (FSDP) just before it runs
+(``part.gather_fsdp``), and the layers sum their row-parallel outputs
+over 'model' (``part``).
 
 Families:
     dense   — pre-norm GQA attention + SwiGLU (SWA / qk-norm variants)
@@ -24,11 +27,14 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import block, local_shape
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (AttnSpec, apply_rope, attention,
-                                       einsum, mha_online, rms_norm, swiglu,
-                                       update_slice)
+from repro_torch.models import part
+from repro_torch.models.layers import (AttnSpec, apply_rope, attend,
+                                       attention, mha_online, project_heads,
+                                       project_out, rms_norm, store_kv,
+                                       swiglu, whole_kv)
 from repro_torch.models.part import constrain
 
 F32 = torch.float32
@@ -77,29 +83,51 @@ def attn_spec(cfg: ArchConfig, *, causal=True, window=None) -> AttnSpec:
 class _Init:
     """Draws for init_params: from a torch.Generator on ``device``, from a
     numpy Generator on the host (the same weights on every host and torch
-    version), or none on the meta device."""
+    version), or none on the meta device.  With ``mesh`` and ``specs``
+    (the spec of each leaf, in the order they are drawn) a leaf keeps the
+    rank's block alone, cut from each group's draw as it is made: the
+    same draws, and the same values, as on one device."""
 
-    def __init__(self, rng, device):
+    def __init__(self, rng, device, mesh=None, specs=None):
         self.rng, self.device = rng, torch.device(device)
+        self.mesh, self.specs = mesh, specs
+        self.made = []                     # the leaves, in draw order
 
     def lin(self, shape, scale, dtype=BF16):
+        spec = self.specs[len(self.made)] if self.specs else None
+        out = self._lin(shape, scale, dtype, spec)
+        self.made.append(out)
+        return out
+
+    def _lin(self, shape, scale, dtype, spec):
         if self.device.type == "meta":
             return torch.empty(shape, dtype=dtype, device=self.device)
-        if isinstance(self.rng, np.random.Generator):
-            x = self.rng.standard_normal(shape, dtype=np.float32)
-            x = torch.from_numpy(x * np.float32(scale))
-            return x.to(dtype).to(self.device)
         # a stacked (G, ...) leaf is drawn one group at a time, so the f32
-        # draw held beside the weights is one layer's, not the stack's
-        out = torch.empty(shape, dtype=dtype, device=self.device)
-        for part in (out if len(shape) > 2 else (out,)):
-            x = torch.randn(part.shape, generator=self.rng, dtype=F32,
-                            device=self.device)
-            part.copy_(x.mul_(scale))
+        # draw held beside the weights is one layer's, not the stack's (a
+        # stacked leaf's spec never splits G)
+        stacked = len(shape) > 2
+        sub = spec[1:] if spec is not None and stacked else spec
+        local = shape if spec is None else local_shape(shape, spec,
+                                                       self.mesh)
+        out = torch.empty(local, dtype=dtype, device=self.device)
+        for dst in (out if stacked else (out,)):
+            part_shape = shape[1:] if stacked else shape
+            if isinstance(self.rng, np.random.Generator):
+                x = self.rng.standard_normal(part_shape, dtype=np.float32)
+                x = torch.from_numpy(x * np.float32(scale)).to(dtype)
+            else:
+                x = torch.randn(part_shape, generator=self.rng, dtype=F32,
+                                device=self.device).mul_(scale)
+            dst.copy_(x if sub is None else block(x, sub, self.mesh))
         return out
 
     def full(self, shape, value, dtype=BF16):
-        return torch.full(shape, value, dtype=dtype, device=self.device)
+        spec = self.specs[len(self.made)] if self.specs else None
+        if spec is not None:
+            shape = local_shape(shape, spec, self.mesh)
+        out = torch.full(shape, value, dtype=dtype, device=self.device)
+        self.made.append(out)
+        return out
 
 
 def _init_attn(ini: _Init, cfg: ArchConfig, G: int, cross=False) -> Dict:
@@ -187,10 +215,32 @@ def _init_block(ini: _Init, cfg: ArchConfig, kind: str, G: int) -> Dict:
     raise ValueError(kind)
 
 
-def init_params(cfg: ArchConfig, rng, device) -> Dict:
+def _draw_specs(cfg: ArchConfig, mesh) -> list:
+    """The spec of each leaf ``init_params`` draws, in draw order."""
+    ini = _Init(None, "meta")
+    tree = _build(ini, cfg)
+    specs = part.param_specs(cfg, mesh)
+    path_of = {}
+
+    def walk(node, sp):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, sp[k])
+            else:
+                path_of[id(v)] = sp[k]
+    walk(tree, specs)
+    return [path_of[id(t)] for t in ini.made]
+
+
+def init_params(cfg: ArchConfig, rng, device, mesh=None) -> Dict:
     """The parameter tree on ``device`` (``_Init`` says what ``rng`` may
-    be)."""
-    ini = _Init(rng, device)
+    be); with a mesh of several devices, the rank's blocks of it."""
+    if not part.sharded(mesh):
+        return _build(_Init(rng, device), cfg)
+    return _build(_Init(rng, device, mesh, _draw_specs(cfg, mesh)), cfg)
+
+
+def _build(ini: _Init, cfg: ArchConfig) -> Dict:
     pattern = layer_pattern(cfg)
     G = n_groups(cfg)
     params: Dict = dict(
@@ -214,9 +264,12 @@ def init_params(cfg: ArchConfig, rng, device) -> Dict:
 # Block application
 # --------------------------------------------------------------------------- #
 def _apply_block(x, bp, kind: str, cfg: ArchConfig, *, pos, is_global=None,
-                 cache=None, cache_index=None, ctx=None, mesh=None):
+                 cache=None, cache_index=None, ctx=None, mesh=None,
+                 batch_axes=()):
     """One layer.  Returns (x, new_cache, aux); aux is 0.0 for a block
-    without experts (no tensor, no launch)."""
+    without experts (no tensor, no launch).  On a mesh ``batch_axes`` are
+    the DP axes the batch is split over (the MoE routes the whole
+    batch's token groups)."""
     aux = 0.0
     new_cache = cache
     x = constrain(x, mesh, ("dp", "tp", None))
@@ -240,7 +293,8 @@ def _apply_block(x, bp, kind: str, cfg: ArchConfig, *, pos, is_global=None,
         h = 0.5 * (rms_norm(a_out, bp["norm_attn"]) +
                    rms_norm(s_out, bp["norm_ssm"]))
         x = x + h.to(x.dtype)
-        x = x + swiglu(rms_norm(x, bp["ln2"]), **bp["mlp"])
+        x = x + swiglu(rms_norm(x, bp["ln2"]), **bp["mlp"], mesh=mesh,
+                       d_ff=cfg.d_ff)
         if cache is not None:
             new_cache = dict(attn=a_cache, ssm=s_cache)
         return x, new_cache, aux
@@ -254,7 +308,7 @@ def _apply_block(x, bp, kind: str, cfg: ArchConfig, *, pos, is_global=None,
         x = x + h
     elif kind == "cross":
         spec = attn_spec(cfg, causal=False)
-        kx, vx = _ctx_kv(ctx, bp["xattn"], cfg)
+        kx, vx = _ctx_kv(ctx, bp["xattn"], cfg, mesh)
         h, _ = attention(rms_norm(x, bp["ln1"]), bp["xattn"], spec, pos=pos,
                          ctx_kv=(kx, vx), mesh=mesh)
         x = x + h
@@ -264,7 +318,7 @@ def _apply_block(x, bp, kind: str, cfg: ArchConfig, *, pos, is_global=None,
                                  pos=pos, cache=cache,
                                  cache_index=cache_index, mesh=mesh)
         x = x + h
-        kx, vx = _ctx_kv(ctx, bp["xattn"], cfg)
+        kx, vx = _ctx_kv(ctx, bp["xattn"], cfg, mesh)
         hx, _ = attention(rms_norm(x, bp["ln_x"]), bp["xattn"],
                           attn_spec(cfg, causal=False), pos=pos,
                           ctx_kv=(kx, vx), mesh=mesh)
@@ -275,46 +329,51 @@ def _apply_block(x, bp, kind: str, cfg: ArchConfig, *, pos, is_global=None,
     # FFN part
     if kind == "self_moe":
         h, aux = moe_lib.moe_ffn(rms_norm(x, bp["ln2"]), bp["moe"], cfg,
-                                 mesh=mesh)
+                                 mesh=mesh, batch_axes=batch_axes)
         x = x + h
     else:
-        x = x + swiglu(rms_norm(x, bp["ln2"]), **bp["mlp"])
+        x = x + swiglu(rms_norm(x, bp["ln2"]), **bp["mlp"], mesh=mesh,
+                       d_ff=cfg.d_ff)
     return x, new_cache, aux
 
 
-def _ctx_kv(ctx, p, cfg: ArchConfig):
+def _ctx_kv(ctx, p, cfg: ArchConfig, mesh=None):
     """Cross-attention keys and values of the context (B, Tc, d)."""
-    shape = (cfg.d_model, cfg.n_kv, cfg.d_head)
-    return (einsum("btd,dhx->bthx", ctx, p["wk"].reshape(shape)),
-            einsum("btd,dhx->bthx", ctx, p["wv"].reshape(shape)))
+    K, D = cfg.n_kv, cfg.d_head
+    return (project_heads(ctx, p["wk"], K, D, mesh),
+            project_heads(ctx, p["wv"], K, D, mesh))
 
 
 def _windowed_attention(x, p, spec: AttnSpec, window, pos, cache,
                         cache_index, mesh=None):
     """Attention with a per-layer window bound (hybrid stacks mix SWA and
     global layers in one stack), applied as a clip on key positions inside
-    the online softmax."""
-    B, S, d = x.shape
+    the online softmax (the reference's ``_mha_dyn_window``: ``attend``
+    with the window, as ``_mha_dyn_window`` below is).  Its
+    cache is written as the reference writes it, a plain cast into the
+    cache's dtype."""
+    S = x.shape[1]
     H, K, D = spec.n_heads, spec.n_kv, spec.d_head
-    q = einsum("bsd,dhx->bshx", x, p["wq"].reshape(d, H, D))
-    k = einsum("bsd,dhx->bshx", x, p["wk"].reshape(d, K, D))
-    v = einsum("bsd,dhx->bshx", x, p["wv"].reshape(d, K, D))
+    q = project_heads(x, p["wq"], H, D, mesh)
+    k = project_heads(x, p["wk"], K, D, mesh)
+    v = project_heads(x, p["wv"], K, D, mesh)
     q = constrain(q, mesh, ("dp", None, "tp", None))
     q = apply_rope(q, pos, spec.rope_theta)
     k = apply_rope(k, pos, spec.rope_theta)
     new_cache = cache
+    grouped = dict(H=H, K=K, mesh=mesh, causal=True, window=window,
+                   chunk=spec.kv_chunk)
     if cache is None:
-        out = _mha_dyn_window(q, k, v, window, q_offset=0, valid_len=S,
-                              chunk=spec.kv_chunk)
+        out = attend(q, k, v, q_offset=0, valid_len=S, **grouped)
     else:
-        ck = update_slice(cache["k"], k, cache_index)
-        cv = update_slice(cache["v"], v, cache_index)
+        ck = store_kv(cache["k"], k, cache_index, mesh)
+        cv = store_kv(cache["v"], v, cache_index, mesh)
         new_cache = dict(k=ck, v=cv)
-        out = _mha_dyn_window(q, ck.to(q.dtype), cv.to(q.dtype), window,
-                              q_offset=cache_index,
-                              valid_len=cache_index + S, chunk=spec.kv_chunk)
-    y = einsum("bshx,hxd->bsd", out, p["wo"].reshape(H, D, d))
-    return y, new_cache
+        out = attend(q, whole_kv(ck, D, mesh).to(q.dtype),
+                     whole_kv(cv, D, mesh).to(q.dtype),
+                     q_offset=cache_index, valid_len=cache_index + S,
+                     **grouped)
+    return project_out(out, p["wo"], H, D, mesh), new_cache
 
 
 def _mha_dyn_window(q, k, v, window, *, q_offset, valid_len, chunk):
@@ -366,10 +425,19 @@ def _unbind(tree, G: int) -> List:
     return list(torch.unbind(tree, 0))
 
 
+def _drop_group_dim(specs: Dict) -> Dict:
+    return {k: _drop_group_dim(v) if isinstance(v, dict) else v[1:]
+            for k, v in specs.items()}
+
+
 def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
               cache_index=None, ctx=None, remat=True,
-              blocks_key="blocks", mesh=None):
+              blocks_key="blocks", mesh=None, batch_axes=()):
     """Run the layer groups in order.  Returns (x, new_cache, aux_sum).
+
+    On a mesh of several devices ``blocks`` are the rank's blocks: each
+    group's are gathered over the DP axes (FSDP) just before it runs and
+    dropped after it; ``batch_axes`` as ``_apply_block`` takes them.
 
     The cache is updated in place (the reference donates it), so
     ``new_cache`` is ``cache``.  ``remat`` is the reference's
@@ -391,19 +459,27 @@ def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
             ig = extras["is_global"][g][j] if extras else None
             x, _, a = _apply_block(
                 x, gp[slot], kind, cfg, pos=pos, is_global=ig, cache=c_j,
-                cache_index=cache_index, ctx=ctx, mesh=mesh)
+                cache_index=cache_index, ctx=ctx, mesh=mesh,
+                batch_axes=batch_axes)
             aux = aux + a
         return x, aux
 
     groups = _unbind(blocks, G)
+    specs = None
+    if part.sharded(mesh):
+        specs = _drop_group_dim(part.param_specs(cfg, mesh)[blocks_key])
     aux = 0.0
     for g in range(G):
         gc = None if cache is None else _at(cache, g)
+        gp = groups[g]
+        if specs is not None:
+            gp = part.gather_fsdp(gp, specs, mesh)
         if checkpointed:
             x, a = torch.utils.checkpoint.checkpoint(
-                group, x, groups[g], gc, g, use_reentrant=False)
+                group, x, gp, gc, g, use_reentrant=False)
         else:
-            x, a = group(x, groups[g], gc, g)
+            x, a = group(x, gp, gc, g)
+        del gp
         aux = aux + a
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=F32, device=x.device)

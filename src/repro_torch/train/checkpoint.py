@@ -17,6 +17,12 @@ order, joined by "/" (``0/embed``, ``1/.step``, ``1/.m/embed``).  A bf16
 leaf is stored as its uint16 bit pattern under the dtype name
 ``"bfloat16"`` (through torch's bf16 view: no ``ml_dtypes``), so the
 ``.npy`` files of a tree equal the reference's byte for byte.
+
+On a mesh (``shardings``: a tree of ``distributed.sharding.NamedSharding``)
+``save`` gathers each leaf whole, one at a time, and rank 0 writes the
+one-device files; ``restore`` reads each rank's own block of each leaf
+from the file (a memory map: the rank never holds the whole tree), onto
+any mesh: reshard-on-restore.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipeline import check_device
+from repro_torch.distributed.sharding import NamedSharding, block, gather
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -60,7 +67,10 @@ def _leaf_paths(tree) -> Tuple[List[str], List[Any], Any]:
     leaves: List[Any] = []
 
     def walk(node, keys):
-        if isinstance(node, dict):
+        if isinstance(node, NamedSharding):
+            paths.append("/".join(keys))
+            leaves.append(node)
+        elif isinstance(node, dict):
             for k in sorted(node):
                 walk(node[k], keys + [str(k)])
         elif isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -79,6 +89,8 @@ def _leaf_paths(tree) -> Tuple[List[str], List[Any], Any]:
         it = iter(new_leaves)
 
         def build(node):
+            if isinstance(node, NamedSharding):
+                return next(it)
             if isinstance(node, dict):
                 out = {k: None for k in node}
                 for k in sorted(node):
@@ -96,13 +108,29 @@ def _leaf_paths(tree) -> Tuple[List[str], List[Any], Any]:
 
 
 def save(ckpt_dir, step: int, tree, data_state: Optional[Dict] = None,
-         extra: Optional[Dict] = None, keep: int = 3) -> pathlib.Path:
+         extra: Optional[Dict] = None, keep: int = 3,
+         shardings=None) -> pathlib.Path:
+    """Write ``tree`` as step ``step``.  With ``shardings`` (a congruent
+    tree) the leaves are a rank's blocks: every rank calls ``save``, each
+    leaf is gathered whole in turn, rank 0 writes the files (the same
+    bytes as the one-device save), and every rank returns once they are
+    published."""
     ckpt_dir = pathlib.Path(ckpt_dir)
-    tmp = ckpt_dir / f".tmp_step_{step:09d}_{int(time.time()*1e6)}"
     final = ckpt_dir / f"step_{step:09d}"
-    tmp.mkdir(parents=True, exist_ok=True)
-
     paths, leaves, _ = _leaf_paths(tree)
+    mesh = None
+    if shardings is not None:
+        _, shards, _ = _leaf_paths(shardings)
+        mesh = shards[0].mesh
+        leaves = (gather(leaf, sh.spec, sh.mesh)
+                  for leaf, sh in zip(leaves, shards))
+        if mesh.rank != 0:
+            for _ in leaves:               # the gathers rank 0 waits on
+                pass
+            mesh.barrier()
+            return final
+    tmp = ckpt_dir / f".tmp_step_{step:09d}_{int(time.time()*1e6)}"
+    tmp.mkdir(parents=True, exist_ok=True)
     manifest = dict(step=step, leaves=[], data_state=data_state or {},
                     extra=extra or {})
     for i, (p, leaf) in enumerate(zip(paths, leaves)):
@@ -119,6 +147,8 @@ def save(ckpt_dir, step: int, tree, data_state: Optional[Dict] = None,
         shutil.rmtree(final)
     tmp.rename(final)                      # atomic publish
     _gc(ckpt_dir, keep)
+    if mesh is not None:
+        mesh.barrier()
     return final
 
 
@@ -141,15 +171,24 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return int(valid[-1].name.split("_")[1])
 
 
+def _sha256(path: pathlib.Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for piece in iter(lambda: f.read(1 << 24), b""):
+            h.update(piece)
+    return h.hexdigest()
+
+
 def restore(ckpt_dir, tree_abstract, step: Optional[int] = None,
-            validate: bool = True, device="cuda"
+            validate: bool = True, device="cuda", shardings=None
             ) -> Tuple[Any, int, Dict, Dict]:
     """(tree, step, data_state, extra) of the latest valid step (or
     ``step``): each leaf of ``tree_abstract`` (tensors on the meta device
     give the shapes and dtypes) read by its path, its file's sha256
     checked, cast to the abstract leaf's dtype if it differs, and put on
-    ``device`` (the reference's ``shardings``: the LM here runs on one
-    device)."""
+    ``device``.  With ``shardings`` (a congruent tree of
+    ``NamedSharding``, on any mesh) each leaf is the rank's block of it,
+    read alone from the file."""
     device = check_device(device)
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
@@ -160,19 +199,22 @@ def restore(ckpt_dir, tree_abstract, step: Optional[int] = None,
     manifest = json.loads((d / "manifest.json").read_text())
 
     paths, leaves_abs, rebuild = _leaf_paths(tree_abstract)
+    shards = (_leaf_paths(shardings)[1] if shardings is not None
+              else [None] * len(paths))
     by_path = {e["path"]: e for e in manifest["leaves"]}
     out = []
-    for p, ab in zip(paths, leaves_abs):
+    for p, ab, sh in zip(paths, leaves_abs, shards):
         e = by_path[p]
         f = d / e["file"]
-        if validate:
-            digest = hashlib.sha256(f.read_bytes()).hexdigest()
-            if digest != e["sha256"]:
-                raise IOError(f"checkpoint corruption in {f}")
-        t = _from_savable(np.load(f), e["dtype"])
-        if tuple(t.shape) != tuple(ab.shape):
-            raise ValueError(f"{p}: shape {tuple(t.shape)} != expected "
+        if validate and _sha256(f) != e["sha256"]:
+            raise IOError(f"checkpoint corruption in {f}")
+        arr = np.load(f, mmap_mode="r")
+        if tuple(arr.shape) != tuple(ab.shape):
+            raise ValueError(f"{p}: shape {tuple(arr.shape)} != expected "
                              f"{tuple(ab.shape)}")
+        if sh is not None:
+            arr = block(arr, sh.spec, sh.mesh)
+        t = _from_savable(arr, e["dtype"])
         if t.dtype != ab.dtype:
             t = t.to(ab.dtype)
         out.append(t.to(device))

@@ -4,10 +4,15 @@ steps of serving.
 The reference's factories return ``(step, jit_for, shardings)``, where
 ``jit_for(batch_abstract)`` jits the step with sharded in/out specs and
 donates the cache (and, training, the parameters and optimizer state).
-Here the LM runs on one device: ``jit_for`` checks the batch stand-ins
-against the factory's batch and returns the step, a donated tree is
-updated in place, and the third item holds the donated trees on the meta
-device.  A mesh of several devices raises (``part.check_mesh``).
+Here ``jit_for`` checks the batch stand-ins against the factory's batch
+and returns the step, and a donated tree is updated in place.  The
+prefill and decode factories take a mesh (``launch.mesh.Mesh``: the step
+runs on this rank's blocks, ``models.part``) and their third item is the
+reference's: the ``params`` and ``cache`` shardings
+(``distributed.sharding``), replicated specs without a mesh.  The train
+step runs on one device (its third item holds the donated trees on the
+meta device); a mesh of several devices raises
+(``part.check_trainable``: the next slice).
 """
 from __future__ import annotations
 
@@ -16,8 +21,10 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.distributed import sharding as shlib
+from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model as M
-from repro_torch.models.part import check_mesh
+from repro_torch.models.part import check_trainable
 from repro_torch.train import optimizer as opt
 
 
@@ -77,7 +84,7 @@ def make_train_step(cfg: ArchConfig, mesh, adamw: opt.AdamWConfig,
     of the batch in f32 (the reference's scan): each slice's gradient is
     added as ``acc + g.to(f32)``, the sum divided by M, the loss averaged,
     and the parts are {nll: loss, aux: 0}."""
-    check_mesh(mesh)
+    check_trainable(mesh)
     params_abs = M.abstract_params(cfg)
     opt_abs = opt.abstract_state(params_abs)
 
@@ -125,12 +132,24 @@ def make_train_step(cfg: ArchConfig, mesh, adamw: opt.AdamWConfig,
     return step, jit_for, dict(params=params_abs, opt=opt_abs)
 
 
+def _shardings(cfg: ArchConfig, mesh, max_len: int, batch: int,
+               kv_dtype) -> Dict:
+    """The reference's {params, cache} shardings on ``mesh`` (one device:
+    an abstract (1, 1) mesh, every spec replicated)."""
+    mesh = mesh if mesh is not None else AbstractMesh((1, 1),
+                                                      ("data", "model"))
+    return dict(
+        params=shlib.param_shardings(M.abstract_params(cfg), mesh),
+        cache=shlib.cache_shardings(
+            M.abstract_cache(cfg, batch, max_len, kv_dtype), mesh))
+
+
 def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, batch: int,
                       kv_dtype=torch.bfloat16):
-    check_mesh(mesh)
-    params_abs = M.abstract_params(cfg)
-    cache_abs = M.abstract_cache(cfg, batch, max_len, kv_dtype)
-
+    """Returns (step, jit_for, {params, cache} shardings).
+    ``step(params, tokens, cache, ctx=None) -> (logits, cache)``: on a
+    mesh the rank's parameter and cache blocks, the whole batch, the whole
+    last-position logits."""
     def step(params, tokens, cache, ctx=None):
         logits, new_cache = M.prefill(params, tokens, cfg, cache=cache,
                                       ctx=ctx, mesh=mesh)
@@ -139,15 +158,13 @@ def make_prefill_step(cfg: ArchConfig, mesh, max_len: int, batch: int,
     def jit_for(batch_abstract):
         _check_batch(cfg, batch_abstract, batch, max_len, "prefill")
         return step
-    return step, jit_for, dict(params=params_abs, cache=cache_abs)
+    return step, jit_for, _shardings(cfg, mesh, max_len, batch, kv_dtype)
 
 
 def make_decode_step(cfg: ArchConfig, mesh, max_len: int, batch: int,
                      kv_dtype=torch.bfloat16):
-    check_mesh(mesh)
-    params_abs = M.abstract_params(cfg)
-    cache_abs = M.abstract_cache(cfg, batch, max_len, kv_dtype)
-
+    """As ``make_prefill_step``: ``step(params, tokens, cache,
+    cache_index, ctx=None) -> (logits, cache)``."""
     def step(params, tokens, cache, cache_index, ctx=None):
         logits, new_cache = M.decode_step(params, tokens, cfg, cache=cache,
                                           cache_index=cache_index, ctx=ctx,
@@ -157,4 +174,4 @@ def make_decode_step(cfg: ArchConfig, mesh, max_len: int, batch: int,
     def jit_for(batch_abstract):
         _check_batch(cfg, batch_abstract, batch, max_len, "decode")
         return step
-    return step, jit_for, dict(params=params_abs, cache=cache_abs)
+    return step, jit_for, _shardings(cfg, mesh, max_len, batch, kv_dtype)

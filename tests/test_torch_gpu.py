@@ -28,7 +28,13 @@ package's logits, within the family tolerances of
 train step of each reduced config against the port on the CPU and three
 against the JAX package's (``src/repro_torch/train/jax_train_golden.json``),
 the optimizer from the CPU's gradients bit for bit, the training launcher
-at qwen3-4b's full width, and a resumed run against an uninterrupted one.
+at qwen3-4b's full width, and a resumed run against an uninterrupted one;
+and its sharded serving path: four gloo ranks sharing the card, a (2, 2)
+mesh, serving the ten reduced configs against the port on the card's one
+device and the JAX package's sharded golden
+(``src/repro_torch/models/jax_lm_sharded_golden.json``), and
+``psum_int8`` over both axes bit for bit against the same algorithm on
+the host.
 
 Marked ``gpu``; every test decides inside itself whether a card exists and
 skips without one:
@@ -1446,3 +1452,59 @@ def test_lm_train_resume_on_the_card_is_exact(tmp_path):
     assert m[0]["leaves"] == m[1]["leaves"]
     assert m[0]["data_state"] == m[1]["data_state"] == {"seed": 0,
                                                         "step": 8}
+
+
+def _lm_sharded_rank() -> dict:
+    """A rank of a (2, 2) gloo mesh sharing the card: every reduced
+    config's sharded outputs, and ``psum_int8`` over both axes."""
+    from repro_torch.distributed.collectives import psum_int8
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import golden as G
+    _lm_exact_matmuls()
+    mesh = make_mesh((2, 2), ("data", "model"), backend="gloo")
+    outs = G.serve_reduced(G.load_sharded(), mesh.device, mesh)
+    x = torch.from_numpy(G.collective_inputs()["x"][mesh.rank])
+    return dict(outs=outs, device=str(mesh.device), backend=mesh.backend,
+                staged=mesh.stats["staged_bytes"],
+                psum=psum_int8(x.to(mesh.device), mesh,
+                               ("data", "model")).cpu().numpy())
+
+
+@pytest.fixture(scope="module")
+def lm_sharded():
+    _card()
+    from repro_torch.launch.mesh import run_ranks
+    return run_ranks(_lm_sharded_rank, 4, timeout=600)
+
+
+@pytest.mark.parametrize("arch", sorted(LM_ARCHS))
+def test_lm_sharded_reduced_on_the_card(lm_sharded, arch):
+    """Four gloo ranks sharing the card serve each reduced config within
+    its family tolerance of the port on the card's one device and of the
+    JAX package's sharded golden; every rank sees the same logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import golden as G
+    from repro_torch.models import model as M
+    dev = _card()
+    _lm_exact_matmuls()
+    gold = G.load_sharded()
+    cfg = get_config(arch).reduced()
+    tokens, ctx = G.sharded_inputs(cfg, gold)
+    want = G.serve_outputs(M.seeded_params(cfg, gold["weights_seed"], dev),
+                           cfg, tokens.to(dev),
+                           None if ctx is None else ctx.to(dev), gold)
+    for r in lm_sharded:
+        assert r["backend"] == "gloo" and r["device"] == "cuda:0"
+        assert r["staged"] > 0
+    _, failed = G.sharded_deviations(
+        arch, [r["outs"][arch] for r in lm_sharded], want, gold)
+    assert not failed, failed
+
+
+def test_lm_sharded_psum_int8_on_the_card(lm_sharded):
+    """``psum_int8`` over the (2, 2) mesh's both axes on the card: the
+    algorithm's result computed on the host, bit for bit."""
+    from repro_torch.models import golden as G
+    want = G.psum_int8_host(G.collective_inputs()["x"])
+    for r in lm_sharded:
+        np.testing.assert_array_equal(r["psum"], want)

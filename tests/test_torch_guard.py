@@ -276,8 +276,12 @@ def test_lm_serving_defaults_to_cuda_and_raises_without_it(no_cuda):
     from repro_torch.models import model as M
     assert PORT / "launch" / "serve.py" in _port_files()
     assert PORT / "models" / "transformer.py" in _port_files()
+    assert PORT / "distributed" / "pipeline.py" in _port_files()
     cfg = get_config("qwen3-4b").reduced()
     for call in (lambda: serve.main(["--arch", "qwen3-4b", "--reduced"]),
+                 # a mesh spawns nothing without the card it asks for
+                 lambda: serve.main(["--arch", "qwen3-4b", "--reduced",
+                                     "--mesh", "2x2"]),
                  lambda: M.init_params(cfg, None),
                  lambda: M.init_cache(cfg, 1, 8),
                  lambda: M.seeded_params(cfg, 0)):

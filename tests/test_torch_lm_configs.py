@@ -33,6 +33,7 @@ from repro_torch.models import golden as G  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.models import part  # noqa: E402
+from repro_torch.train import optimizer as TO  # noqa: E402
 from repro_torch.train import steps as TS  # noqa: E402
 
 ARCHS = sorted(TC.ARCHS)
@@ -155,30 +156,37 @@ def test_quantize_kv_int8_equals_reference():
 class _FakeMesh:
     def __init__(self, **shape):
         self.shape = shape
+        self.axis_names = tuple(shape)
         self.size = int(np.prod(list(shape.values())))
 
 
 def test_only_a_single_device_mesh_is_accepted():
+    """A one-device mesh (or none) runs the single-device path; a mesh of
+    several devices is a mesh of ranks to spawn (``parse_mesh``), on
+    which prefill and decode run sharded (``tests/test_torch_lm_sharded.py``)
+    and the train step still raises (the next slice)."""
     assert parse_mesh("auto", 1) is None
     assert parse_mesh("1x1", 1) is None
     assert parse_mesh("1x1x1", 4) is None
-    for spec, n in (("auto", 4), ("2x2", 4), ("1x2", 2), ("2x1x1", 2)):
-        with pytest.raises(NotImplementedError, match="item 2c"):
-            parse_mesh(spec, n)
+    for spec, n, shape in (("auto", 4, (2, 2)), ("2x2", 4, (2, 2)),
+                           ("1x2", 2, (1, 2)), ("2x1x1", 2, (2, 1, 1))):
+        assert parse_mesh(spec, n)[0] == shape
     x = torch.zeros(2, 3)
     assert part.constrain(x, None, (None, None)) is x
     assert part.constrain(x, _FakeMesh(data=1, model=1), (None, None)) is x
     cfg = TC.get_config("qwen3-4b").reduced()
     four = _FakeMesh(data=2, model=2)
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        part.constrain(x, four, (None, None))
+    assert part.constrain(x, four, (None, None)) is x
+    with pytest.raises(AssertionError):
+        part.constrain(x, four, (None,))
     for make in (TS.make_prefill_step, TS.make_decode_step):
-        with pytest.raises(NotImplementedError, match="item 2c"):
-            make(cfg, four, 24, 2)
+        sh = make(cfg, four, 24, 2)[2]
+        assert sh["params"]["embed"].spec == ("model", "data")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        TM.forward(params, torch.zeros((1, 4), dtype=torch.int32), cfg,
-                   mesh=four)
+    with pytest.raises(NotImplementedError, match="item 2c-ii"):
+        TS.make_train_step(cfg, four, TO.AdamWConfig())
+    with pytest.raises(NotImplementedError, match="item 2c-ii"):
+        TM.value_and_grad(params, {}, cfg, mesh=four)
 
 
 # --------------------------------------------------------------------------- #

@@ -224,8 +224,19 @@ def test_launcher_on_the_cpu(capsys):
                           "--batch", "2", "--prompt-len", "8", "--gen", "2",
                           "--mesh", "1x1"])
         assert out.shape == (2, 2)
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        serve.main(argv + ["--mesh", "2x2"])
+    # a mesh of several devices spawns its ranks (gloo on the CPU), each
+    # serving the launcher's body (tests/test_torch_lm_sharded.py runs it)
+    import unittest.mock as mock
+    spawned = []
+
+    def fake_run_ranks(fn, n, *a, backend, timeout):
+        spawned.append((fn, n, a[1:], backend))
+        return [dict(tokens=toks, rank=r) for r in range(n)]
+    with mock.patch.object(serve, "run_ranks", fake_run_ranks):
+        out = serve.main(argv + ["--mesh", "2x2"])
+    assert spawned == [(serve.serve_rank, 4, ((2, 2), ("data", "model")),
+                        "gloo")]
+    assert out is toks
     assert dataclasses.asdict(res["cfg"]) == dataclasses.asdict(cfg)
 
 
