@@ -103,12 +103,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                32, at D5 and D1 ``ms_fixed`` (load 0.7, and 1.3 with
                shedding and 4 tenants) and D5 ``ms_float``.  Launch counts
                are zeroed just before each run and read just after; every
-               ladder stage must resolve the full-length plan; the run's
-               driver state must equal the same trace through the
-               reference plan on the card, and every admitted read
-               ``map_realtime``'s result.  Then a profiled D5 pass, and
-               each kernel against its plain version at every prefix's
-               shapes (R = 32, S = 256..1024, E = 51..192);
+               ladder stage must resolve the full-length plan, and every
+               admitted read must equal ``map_realtime``'s result.  Then a
+               profiled D5 pass, and each kernel against its plain version
+               at every prefix's shapes (R = 32, S = 256..1024, E =
+               51..192).  Each run's trace through the reference plan on
+               the card is deferred (see ``train``): its driver state must
+               equal the kernels plan's;
 8. sharded   — the multi-device mapper (``Mapper(mesh=...)``): the
                single-device runs first, then 4 ranks sharing the card
                through gloo (mesh (2, 2) ('data', 'model'), spawned by
@@ -150,7 +151,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                against host); D1-D5 in each mode (chunks of 32) and the
                filter ablation's five variants (400,000 bases, 96 reads):
                every read under the kernels plan must equal the reference
-               plan on the card.  ``[paper-summary]``: each record's F1
+               plan on the card (D1-D5's reference maps deferred, see
+               ``train``).  ``[paper-summary]``: each record's F1
                and peak device memory (with what earlier phases still held
                when the phase began), the kernels plan's reads/s a record
                (the median pass of a 2 s window, with the fastest and
@@ -212,7 +214,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                against the JAX package's (``jax_train_golden.json``); a
                reduced qwen3-4b run of 8 steps and a second process resumed
                from its step-4 checkpoint, under deterministic algorithms,
-               equal leaf for leaf (sha256);
+               equal leaf for leaf (sha256).  While the reduced configs and
+               the resume run (they time nothing), the serve and paper
+               phases' deferred reference-plan runs (``defer``: 5 serving
+               traces, 15 records' reads; the plain DP is host-paced, and
+               no number times them) go side by side in 5 processes of
+               their own on the card, and each result is checked against
+               its kernels-plan run before the phase ends;
 13. lm_sharded — the LM's sharded serving path (``models.part``), which
                launches no hand-written kernel either (every count must
                read 0 on every rank): the one-device port on the card
@@ -235,7 +243,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``psum_int8`` over both axes against the host; a sharded
                save equal file for file to the one-device save, restored
                onto a (2, 1) mesh block for block;
-14. summary  — one JSON line of per-kernel results, then the last line
+14. train_sharded — the LM's sharded train step (``models.part``'s
+               gradients, ZeRO-3 moments), no hand-written kernel on any
+               rank either: the one-device port on the card while the
+               same (2, 2) mesh of 4 gloo ranks sharing the card starts:
+               qwen3-4b at full width with 2 layers (weights seed 1, drawn
+               on the card; batch 8, seq 128): each rank's update of its
+               blocks from the one device's first gradients equal to the
+               one-device update's blocks bit for bit (sha256), three
+               train steps' losses within the sharded golden's ``loss``
+               and the first gradient leaf by leaf within its
+               ``card_grad`` of one device (the ranks' blocks' sums of
+               squares; blocks held twice equal; the reduced configs are
+               the ``gpu`` cases'); then the launcher at full width and
+               depth (``--mesh 2x2``, batch 8,
+               seq 128, 3 steps: one warm-up, two timed; rank 0 prints its
+               lines): ms a step and tok/s against the one-device bound,
+               every loss and norm finite, peak memory a rank and summed,
+               and its last step under torch.profiler on rank 0: launches,
+               busy share, collective calls and bytes by kind (all-gather,
+               all-reduce, reduce-scatter) and gloo's staging;
+15. summary  — one JSON line of per-kernel results, then the last line
                ``{"ok": true, "device": {...}}``.  Every log line also goes
                to ``chiprun_out/chip_smoke.log``.
 
@@ -248,12 +276,15 @@ in ``chiprun_out/chip_smoke_sharded.json`` and prints no result line;
 ``chiprun_out/chip_smoke_lm_sharded.json``, phase 13 with its diagnosis
 (``lm_sharded_diagnosis``: the one-device port on the host's CPU against
 the card at full depth, and the residual stream block by block against
-one device, naming the first block that differs).
+one device, naming the first block that differs), and
+``--train-sharded-only`` phases 1 and 14 into
+``chiprun_out/chip_smoke_train_sharded.json``.
 
 It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -1990,18 +2021,17 @@ def check_stage_plans(label, mapper, stages_):
 def serve_run(key, mode, extra, dev):
     """One run of the serving launcher (``serve_rsga.run``, the kernels
     plan) with launch and route counts zeroed just before and read just
-    after; the same trace through the reference plan on the card must give
-    the same driver state, and every admitted read the result
-    ``map_realtime`` gives it."""
+    after; every admitted read must get the result ``map_realtime`` gives
+    it (``phase_serve`` holds the driver state against the reference
+    plan's)."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
-    from repro_torch.core import Mapper, ServeDriver, pipeline
+    from repro_torch.core import pipeline
     from repro_torch.core.realtime import map_realtime
     from repro_torch.launch import serve_rsga
     label = f"{key} {mode} {' '.join(extra)}"
-    argv = ["--dataset", key, "--mode", mode, *SERVE_ARGS, *extra,
-            "--use-kernels"]
+    argv = [*serve_argv(key, mode, extra), "--use-kernels"]
     torch.cuda.synchronize()
     K.reset_launches()
     pipeline.CHAIN_ROUTES.clear()
@@ -2013,18 +2043,6 @@ def serve_run(key, mode, extra, dev):
     check_launches(f"serve {label}", launches,
                    FUSED_PATH if mode == "ms_fixed" else FLOAT_PATH)
     plans = check_stage_plans(label, sd.mapper, sd.stages)
-
-    # the same trace through the reference plan, on the card
-    K.reset_launches()
-    plain = ServeDriver(Mapper(served.index, served.cfg, use_kernels=False,
-                               device=dev), **served.serve_kw)
-    t0 = time.time()
-    plain.serve_trace(served.trace)
-    plain_wall = time.time() - t0
-    check_launches(f"serve {label} reference plan", K.LAUNCHES, ())
-    if driver_state(sd) != driver_state(plain):
-        raise AssertionError(f"serve {label}: the kernels plan's driver "
-                             "state differs from the reference plan's")
 
     # every admitted read against map_realtime on the same reads: trace
     # row k (arrival order) carries read k
@@ -2060,7 +2078,7 @@ def serve_run(key, mode, extra, dev):
         streams=len(rows), chunk=SERVE_CHUNK, wall_s=served.wall_s,
         reads_per_s=n_reads / served.wall_s,
         streams_per_s=len(rows) / served.wall_s,
-        plain_wall_s=plain_wall, virtual_makespan=sd.clock,
+        virtual_makespan=sd.clock,
         p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)),
         n_chunks=sd.n_chunks, n_pad_rows=sd.n_pad_rows, n_shed=sd.n_shed,
         mapped=int(sum(r.n_mapped for r in served.reports.values())),
@@ -2072,13 +2090,13 @@ def serve_run(key, mode, extra, dev):
         counters=sd.counters)
     log(f"[serve] {label}: {n_reads} reads over {len(rows)} streams in "
         f"{served.wall_s:.3f} s wall ({res['reads_per_s']:.1f} reads/s, "
-        f"{res['streams_per_s']:.2f} streams/s; reference plan "
-        f"{plain_wall:.1f} s), {sd.n_chunks} chunks of {SERVE_CHUNK} "
+        f"{res['streams_per_s']:.2f} streams/s), {sd.n_chunks} chunks of "
+        f"{SERVE_CHUNK} "
         f"({sd.n_pad_rows} pad rows), {sd.n_shed} shed, virtual makespan "
         f"{sd.clock:.2f}, p50 {res['p50']:.3f} p99 {res['p99']:.3f} "
         f"(virtual units); kernel launches {launches} "
-        f"({res['launches_per_chunk']:.2f} a chunk); equals the reference "
-        f"plan and map_realtime ({n_checked} admitted reads)")
+        f"({res['launches_per_chunk']:.2f} a chunk); equals "
+        f"map_realtime ({n_checked} admitted reads)")
     log(f"[serve] {label}: chain routes {res['chain_routes']}")
     return res, served
 
@@ -2230,19 +2248,141 @@ def serve_kernels(cfg, reads, index, dev):
     return out
 
 
+# The reference plan's long runs.  The serve phase's traces and the paper
+# phase's records through the reference plan take minutes on the card (its
+# plain DP is host-paced) and no number of the script times them.  `defer`
+# queues such a run (a picklable call, and the check of its result in this
+# process); `deferred_runs` runs the queue side by side in
+# REFERENCE_WORKERS processes of their own, one intra-op thread each, while
+# a stretch of the train phase that times nothing goes on (the reduced
+# configs against the CPU, the resume), and then checks every result: a
+# check that fails fails the script as it would in its own phase.
+REFERENCE_WORKERS = 5
+DEFERRED = []
+
+
+def defer(label: str, fn, args: tuple, check) -> None:
+    """Queue ``fn(*args)`` for ``deferred_runs``; ``check`` gets its
+    result."""
+    DEFERRED.append((label, fn, args, check))
+
+
+def reference_init() -> None:
+    """A deferred run's process: one intra-op thread (the runs share the
+    host's cores with the script) and the script's float settings."""
+    import torch
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def deferred_runs():
+    """Run the DEFERRED queue side by side while the body runs, then check
+    each result in queue order.  Yields a dict that gets the number of
+    runs, their seconds and the seconds the script waited for them after
+    the body."""
+    import concurrent.futures
+    import multiprocessing
+    import torch
+    jobs, out = list(DEFERRED), {}
+    DEFERRED.clear()
+    if not jobs:
+        yield out
+        return
+    t0 = time.time()
+    workers = min(len(jobs), REFERENCE_WORKERS)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=reference_init)
+    # the body's intra-op threads: the cores the runs leave
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) - workers))
+    try:
+        futures = [pool.submit(fn, *args) for _, fn, args, _ in jobs]
+        yield out
+        t1 = time.time()
+        for (_, _, _, check), fut in zip(jobs, futures):
+            check(fut.result())
+        out.update(runs=[label for label, *_ in jobs],
+                   seconds=time.time() - t0, body_s=t1 - t0,
+                   waited_s=time.time() - t1)
+    finally:
+        torch.set_num_threads(threads)
+        pool.shutdown(wait=True, cancel_futures=True)
+    log(f"[deferred] {len(jobs)} reference-plan runs ("
+        + ", ".join(f"{k} {sum(lb.startswith(k) for lb in out['runs'])}"
+                    for k in ("serve", "paper"))
+        + f") side by side in {workers} processes: {out['seconds']:.1f} s, "
+        f"every result equals its kernels-plan run's; the stretch they "
+        f"overlap {out['body_s']:.1f} s, then waited {out['waited_s']:.1f} s")
+
+
+def serve_argv(key, mode, extra) -> list:
+    """The serving launcher's arguments of one run of SERVE_RUNS, without
+    ``--use-kernels``."""
+    return ["--dataset", key, "--mode", mode, *SERVE_ARGS, *extra]
+
+
+def serve_reference(argv) -> tuple:
+    """One serving trace through the reference plan on the card, a deferred
+    run (``defer``): the launcher without ``--use-kernels`` (the same
+    dataset, index, trace and driver settings as the kernels plan's run).
+    Returns the driver state, the serving wall and the launches, counted
+    from zero."""
+    import io
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch import serve_rsga
+    K.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        served = serve_rsga.run(list(argv))
+    torch.cuda.synchronize()
+    return driver_state(served.driver), served.wall_s, dict(K.LAUNCHES)
+
+
+def serve_reference_check(label, res, state):
+    """The check of a deferred ``serve_reference``: no kernel launched and
+    the driver state the kernels plan's (``state``); its serving wall goes
+    into the run's record ``res``."""
+    def check(got):
+        plain_state, wall, launches = got
+        check_launches(f"serve {label} reference plan", launches, ())
+        if plain_state != state:
+            raise AssertionError(f"serve {label}: the kernels plan's driver "
+                                 "state differs from the reference plan's")
+        res["plain_wall_s"] = wall
+    return check
+
+
 def phase_serve(data, dev):
     """The serving path: every run of SERVE_RUNS through the launcher, a
     profiled pass of the first (D5) run's trace, and the kernels at the
-    serving shapes."""
-    runs, first = {}, None
+    serving shapes.  Each run's trace through the reference plan is
+    deferred (``defer``): its driver state must equal the kernels plan's."""
+    runs, first, seconds = {}, None, {}
     for key, mode, extra in SERVE_RUNS:
+        t0 = time.time()
         res, served = serve_run(key, mode, extra, dev)
-        runs[f"{key} {mode} {' '.join(extra)}"] = res
+        label = f"{key} {mode} {' '.join(extra)}"
+        runs[label] = res
+        defer(f"serve {label}", serve_reference,
+              (serve_argv(key, mode, extra),),
+              serve_reference_check(label, res, driver_state(served.driver)))
         first = first or served
+        seconds[label] = time.time() - t0
+    t0 = time.time()
     profile_ = serve_profile(first, dev)
+    seconds["profile"] = time.time() - t0
+    t0 = time.time()
     cfg, _, reads, index = data["D5"]
-    return dict(runs=runs, profile=profile_,
-                kernels=serve_kernels(cfg, reads, index, dev))
+    kernels = serve_kernels(cfg, reads, index, dev)
+    seconds["kernels"] = time.time() - t0
+    log("[serve] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in seconds.items())
+        + f"; the {len(SERVE_RUNS)} reference-plan traces deferred")
+    return dict(runs=runs, profile=profile_, kernels=kernels,
+                seconds=seconds)
 
 
 # The sharded phase: a (2, 2) ('data', 'model') mesh of 4 gloo ranks sharing
@@ -2615,26 +2755,57 @@ def equal_outputs(label, got, want) -> None:
 
 
 
+def paper_inputs(ds: str, mode: str) -> tuple:
+    """A paper record's config, reads and index, as ``pipeline_run``
+    builds them."""
+    from repro_torch.core import build_index
+    from repro_torch.signal import datasets
+    cfg = datasets.config_for(datasets.DATASETS[ds]).with_mode(mode)
+    ref, reads = datasets.build(datasets.DATASETS[ds], cfg)
+    return cfg, reads, build_index(ref.events_concat, ref.n_events, cfg)
+
+
+def paper_reference(ds: str, mode: str) -> tuple:
+    """A paper record's reads through the reference plan on the card in
+    chunks of 32, a deferred run (``defer``): the host ``MapOutput`` and
+    the launches, counted from zero."""
+    from repro_torch import kernels as K
+    from repro_torch.core import Mapper
+    cfg, reads, index = paper_inputs(ds, mode)
+    K.reset_launches()
+    out = Mapper(index, cfg, use_kernels=False,
+                 device="cuda").map_signals(reads.signals, chunk=32)
+    return out, dict(K.LAUNCHES)
+
+
+def paper_reference_check(label, got):
+    """The check of a deferred ``paper_reference``: no kernel launched and
+    every read's outputs and the counters the kernels plan's (``got``)."""
+    def check(res):
+        want, launches = res
+        check_launches(f"{label} reference plan", launches, ())
+        equal_outputs(label, got, want)
+    return check
+
+
 def paper_reads(dev):
-    """Every (dataset, mode) record's reads (D2-D4 new to the card): mapped
-    in chunks of 32, every read of the kernels plan equals the reference
-    plan's on the card.  Then the kernels plan maps the record's reads
-    again and again for ``WINDOW_S`` seconds (``window``: at least
-    ``MIN_PASSES`` passes, each ended by a device sync): reads/s of
-    the median pass with the fastest and slowest, on the host clock."""
-    from repro_torch.core import Mapper, build_index
+    """Every (dataset, mode) record's reads (D2-D4 new to the card) mapped
+    by the kernels plan in chunks of 32; the same reads through the
+    reference plan are deferred (``defer``): every read must be equal.
+    Then the kernels plan maps the record's reads again and again for
+    ``WINDOW_S`` seconds (``window``: at least ``MIN_PASSES`` passes, each
+    ended by a device sync): reads/s of the median pass with the fastest
+    and slowest, on the host clock."""
+    from repro_torch.core import Mapper
     from repro_torch.signal import datasets
     rates = {}
-    for ds, spec in datasets.DATASETS.items():
+    for ds in datasets.DATASETS:
         for mode in PAPER_MODES:
-            cfg = datasets.config_for(spec).with_mode(mode)
-            ref, reads = datasets.build(spec, cfg)
-            index = build_index(ref.events_concat, ref.n_events, cfg)
-            kern, plain = (Mapper(index, cfg, use_kernels=k, device=dev)
-                           for k in (True, False))
-            equal_outputs(f"paper {ds} {mode}",
-                          kern.map_signals(reads.signals, chunk=32),
-                          plain.map_signals(reads.signals, chunk=32))
+            cfg, reads, index = paper_inputs(ds, mode)
+            kern = Mapper(index, cfg, use_kernels=True, device=dev)
+            label = f"paper {ds} {mode}"
+            defer(label, paper_reference, (ds, mode), paper_reference_check(
+                label, kern.map_signals(reads.signals, chunk=32)))
             w = window(lambda: kern.map_signals(reads.signals, chunk=32))
             n = len(reads.signals)
             rates[f"{ds} {mode}"] = dict(
@@ -2642,8 +2813,8 @@ def paper_reads(dev):
                 reads_per_s=n / w["median_ms"] * 1e3,
                 fastest_reads_per_s=n / w["fastest_ms"] * 1e3,
                 slowest_reads_per_s=n / w["slowest_ms"] * 1e3)
-    log("[paper] D1-D5, each mode, chunks of 32: every read's outputs and "
-        "the counters of the kernels plan equal the reference plan's")
+    log("[paper] D1-D5, each mode, chunks of 32: every read through the "
+        "kernels plan; the same reads through the reference plan deferred")
     log("[paper] kernels plan reads/s (median of a "
         f"{WINDOW_S:.0f} s window, slowest-fastest pass): " + "; ".join(
             f"{k} {v['reads_per_s']:.1f} ({v['slowest_reads_per_s']:.1f}-"
@@ -2664,10 +2835,11 @@ def phase_paper(dev):
     the host CPU's rows (virtual-clock numbers that do not depend on the
     mapped outputs, so the calibration mapper's reads are held against the
     host's as well); ``bench_sim.check`` must pass on the committed
-    ``BENCH_sim.json``.  Every record's reads (D2-D4 new to the card) and
-    the filter ablation's five variants: every read mapped under the
-    kernels plan must equal the reference plan's; the kernels plan's
-    reads/s come from a timed window of repeated passes."""
+    ``BENCH_sim.json``.  Every record's reads (D2-D4 new to the card; their
+    reference maps deferred, ``paper_reads``) and the filter ablation's
+    five variants: every read mapped under the kernels plan must equal the
+    reference plan's; the kernels plan's reads/s come from a timed window
+    of repeated passes."""
     import shutil
     import torch
     from repro_torch import kernels as K
@@ -3431,7 +3603,8 @@ def phase_train(smi):
     full width through ``repro_torch.launch.train``; the ten reduced
     configs' train step on the card against the port on the CPU and the
     JAX package's golden (``jax_train_golden.json``); a resumed run
-    against an uninterrupted one."""
+    against an uninterrupted one.  The last two go side by side with the
+    deferred reference-plan runs (``deferred_runs``)."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.configs import ARCHS
@@ -3443,8 +3616,11 @@ def phase_train(smi):
         full[arch] = lm_train(arch, n_params, smi)
         torch.cuda.empty_cache()
     gold = TG.load()
-    reduced = {a: train_card_vs_cpu(a, gold, smi) for a in sorted(ARCHS)}
-    resume = train_resume(smi)
+    # the deferred reference-plan runs go side by side with this stretch,
+    # which times nothing
+    with deferred_runs() as deferred:
+        reduced = {a: train_card_vs_cpu(a, gold, smi) for a in sorted(ARCHS)}
+        resume = train_resume(smi)
     launched = {k: v for k, v in K.LAUNCHES.items() if v}
     if launched:
         raise AssertionError(f"train: hand-written kernels launched "
@@ -3453,7 +3629,8 @@ def phase_train(smi):
     log(f"[train] no hand-written kernel launched (all {len(K.LAUNCHES)} "
         f"counts 0); phase {seconds:.1f} s")
     return dict(full=full, reduced=reduced, resume=resume,
-                launches=dict(K.LAUNCHES), seconds=seconds)
+                launches=dict(K.LAUNCHES), deferred=deferred,
+                seconds=seconds)
 
 
 # The LM scaffold's sharded serving path (``lm_sharded`` phase): qwen3-4b
@@ -3874,6 +4051,444 @@ def phase_lm_sharded(smi, diagnose=False):
     return out
 
 
+# The LM scaffold's sharded train step (``train_sharded`` phase): qwen3-4b
+# on a (2, 2) mesh of 4 gloo ranks sharing the card, against the card's
+# one device at full width with 2 layers, then the launcher at full width
+# and depth
+TRAIN_SHARDED_MESH = ((2, 2), ("data", "model"))
+# the launcher at the JAX launcher's defaults (batch 8, seq 128): one
+# warm-up step and two timed ones (a step moves about 8.8 GB a rank
+# through gloo: three steps and a profiled one fill most of the phase)
+TRAIN_SHARDED_ARGV = ["--arch", "qwen3-4b", "--mesh", "2x2", "--batch", "8",
+                      "--seq", "128", "--steps", "3", "--log-every", "1"]
+# the 2-layer check: the launcher's batch, sequence and schedule, weights
+# from seed 1 drawn on the card
+TRAIN_SHARDED_CUT = dict(weights_seed=1, stream_seed=0, batch=8, seq=128,
+                         steps=3, adamw=dict(lr=1e-3, warmup_steps=2,
+                                             total_steps=3))
+
+
+def train_sharded_cfg(reduced: bool, layers=None):
+    """qwen3-4b (reduced, for a rehearsal on the CPU), with ``layers``."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-4b")
+    cfg = cfg.reduced() if reduced else cfg
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def card_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def card_peak(dev, reset=False) -> int:
+    """The device's peak allocation (after ``reset``: zeroed); 0 on the
+    CPU."""
+    import torch
+    if dev.type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def tensor_digest(t) -> str:
+    """sha256 of a tensor's bytes."""
+    import torch
+    t = t.detach().contiguous().cpu().reshape(-1)
+    return hashlib.sha256(t.view(torch.uint8).numpy()).hexdigest()
+
+
+def train_sharded_rank(job):
+    """One rank of the ``train_sharded`` phase (spawned by ``run_ranks``):
+    qwen3-4b with 2 layers at full width (the optimizer's update of the
+    rank's blocks from the one device's gradients, as digests; three train
+    steps with the rank's blocks' gradient against the one device's, as
+    sums of squares), then the launcher at full width and depth
+    (``train.train``: rank 0 prints), its last step under torch.profiler
+    on rank 0.  The one device's gradients come in a file the parent
+    writes while the ranks start.  Rank 0 prints each part's seconds as
+    it ends."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train import golden as G
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+    G.exact_matmuls()
+    mesh = make_mesh(*job["mesh"], device=job["device"], backend="gloo")
+    dev = mesh.device
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    K.reset_launches()
+    res = dict(rank=mesh.rank, coords=mesh.coords, device=str(dev),
+               backend=mesh.backend)
+    t_rank = time.time()
+
+    def done(part):
+        if mesh.rank == 0:
+            print(f"[train-sharded] rank 0: {part} at "
+                  f"{time.time() - t_rank:.1f} s", flush=True)
+    # 1. qwen3-4b at full width with 2 layers, once the parent has written
+    # the one device's gradients
+    ref_path = pathlib.Path(job["ref"])
+
+    def wait_for(path):
+        deadline = time.time() + 600
+        while not path.exists():
+            if (ref_path.with_suffix(".failed").exists()
+                    or time.time() > deadline):
+                raise RuntimeError("the one device's reference failed")
+            time.sleep(0.2)
+    wait_for(ref_path)
+    done("the one device's gradients written")
+    cut = job["cut"]
+    cfg2 = train_sharded_cfg(job["reduced"], 2)
+    adamw = O.AdamWConfig(**cut["adamw"])
+    p_sh = S.make_train_step(cfg2, mesh, adamw)[2]["params"]
+    specs = {k: s.spec for k, s in M.flatten(p_sh).items()}
+    ref = torch.load(job["ref"], mmap=True)
+    params = M.init_params(cfg2, torch.Generator(dev).manual_seed(
+        cut["weights_seed"]), dev, mesh)
+    grads = M.unflatten({k: SH.block(v, specs[k], mesh).to(dev)
+                         for k, v in ref.items()})
+    p = M.tree_map(torch.clone, params)
+    p, st, _ = O.update(adamw, p, grads, O.init_state(p), donate=True,
+                        shardings=p_sh)
+    res["update_digests"] = {
+        part: {k: tensor_digest(v) for k, v in M.flatten(tree).items()}
+        for part, tree in (("params", p), ("m", st.m), ("v", st.v))}
+    del p, st, grads
+    done("the update from one device's gradients")
+    t0 = time.time()
+    run = G.train_run(cfg2, cut, dev, mesh, params=params, gather=False)
+    d2, n2, digests = {}, {}, {}
+    for k, g in run.pop("grads").items():
+        want = SH.block(ref[k], specs[k], mesh).to(dev).double()
+        d2[k] = float(torch.sum((g.to(dev).double() - want) ** 2))
+        n2[k] = float(torch.sum(want ** 2))
+        digests[k] = tensor_digest(g)
+    res["cut"] = dict(run, d2=d2, n2=n2, digests=digests,
+                      seconds=time.time() - t0)
+    del params, ref
+    done("three steps at 2 layers")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # 2. the launcher at full width and depth, its last step under
+    # torch.profiler on rank 0 (its collectives counted alone), once the
+    # parent's reference has left the card
+    wait_for(ref_path.with_suffix(".freed"))
+    card_sync(dev)
+    mesh.stats.clear()
+    card_peak(dev, reset=True)
+    args = train.parse_args(job["argv"])
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    prof = (profile(activities=acts) if mesh.rank == 0
+            else contextlib.nullcontext())
+    profiled = {}
+    made = S.make_train_step
+
+    def make(*a, **kw):
+        step, jit_for, sh = made(*a, **kw)
+        calls = []
+
+        def traced(params, state, batch):
+            calls.append(1)
+            if len(calls) < args.steps:
+                return step(params, state, batch)
+            card_sync(dev)
+            profiled["before"] = dict(mesh.stats)
+            mesh.stats.clear()
+            with prof:
+                t0 = time.perf_counter()
+                out = step(params, state, batch)
+                float(out[2]["loss"])
+                profiled["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            profiled["stats"] = dict(mesh.stats)
+            return out
+        return traced, lambda b: (jit_for(b), traced)[1], sh
+    S.make_train_step = make
+    t0 = time.time()
+    try:
+        out = train.train(args, mesh)
+    finally:
+        S.make_train_step = made
+    res["launcher"] = dict(
+        times=out["times"], history=out["history"],
+        seconds=time.time() - t0, stats=profiled["before"],
+        peak=card_peak(dev), param_bytes=tree_bytes(out["params"]),
+        state_bytes=tree_bytes(out["opt_state"].m) + tree_bytes(
+            out["opt_state"].v))
+    done("the launcher")
+    res["profile"] = dict(wall_ms=profiled["wall_ms"],
+                          stats=profiled["stats"])
+    if mesh.rank == 0:
+        busy, by_kernel = device_busy(prof, "trace_train_sharded_rank0.json.gz")
+        res["profile"].update(
+            busy_ms=busy * 1e3,
+            launches=sum(n for n, _ in by_kernel.values()),
+            top_kernels=sorted(((k[:60], n, us / 1e3)
+                                for k, (n, us) in by_kernel.items()),
+                               key=lambda r: -r[2])[:5])
+    res["finite"] = bool(np.isfinite([v for h in out["history"]
+                                      for v in h.values()]).all())
+    del out
+    res["launches"] = dict(K.LAUNCHES)
+    return res
+
+
+def train_sharded_check(outs, ref, smi, spawn_s, reduced=False) -> dict:
+    """Hold every rank's results (``train_sharded_rank``) against the card's
+    one device (``ref``): the 2-layer check (each leaf's gathered
+    gradient within the sharded golden's ``card_grad``, rebuilt from the
+    ranks' blocks' sums of squares; replicas' blocks equal; three losses
+    within its ``loss``; learning rates equal; the update's blocks bit for
+    bit), the launcher's losses and norms finite, no hand-written kernel
+    on any rank; log what the mesh measured, then raise for every check
+    that failed."""
+    import numpy as np
+    from repro_torch.distributed.sharding import axes_of
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import model as M
+    from repro_torch.train import golden as G
+    from repro_torch.train import steps as S
+    from repro_torch.train import optimizer as O
+    tol = G.load_sharded()["tolerance"]
+    failed = []
+    mesh = AbstractMesh(*TRAIN_SHARDED_MESH)
+    cfg2 = train_sharded_cfg(reduced, 2)
+    specs = {k: s.spec for k, s in M.flatten(S.make_train_step(
+        cfg2, mesh, O.AdamWConfig())[2]["params"]).items()}
+    leaf_err = {}
+    for k, spec in specs.items():
+        axes = [a for e in spec for a in axes_of(e)]
+        copies = mesh.size // int(np.prod([mesh.shape[a] for a in axes]))
+        d = sum(r["cut"]["d2"][k] for r in outs) / copies
+        n = sum(r["cut"]["n2"][k] for r in outs) / copies
+        leaf_err[k] = float(np.sqrt(d / n)) if n else float(np.sqrt(d))
+        by_block = {}
+        for r in outs:
+            key = tuple(r["coords"][a] for a in axes)
+            by_block.setdefault(key, set()).add(r["cut"]["digests"][k])
+        if any(len(v) > 1 for v in by_block.values()):
+            failed.append(f"2 layers: ranks holding the same block of {k} "
+                          "have different gradients")
+    worst = max(leaf_err.values())
+    if not worst <= tol["card_grad"]:
+        failed.append(f"2 layers: gradient leaf {max(leaf_err, key=leaf_err.get)}"
+                      f" {worst} against one device (limit "
+                      f"{tol['card_grad']})")
+    r0 = outs[0]
+    loss_d = max(abs(a - b) for a, b in zip(r0["cut"]["loss"], ref["loss"]))
+    if not loss_d <= tol["loss"]:
+        failed.append(f"2 layers: losses {r0['cut']['loss']} against one "
+                      f"device {ref['loss']}")
+    if any(r["cut"]["lr"] != ref["lr"] for r in outs):
+        failed.append("2 layers: learning rates differ from one device's")
+    if any(r["cut"]["loss"] != r0["cut"]["loss"] for r in outs):
+        failed.append("2 layers: the ranks' losses differ")
+    for r in outs:
+        for part, want in ref["update_digests"][r["rank"]].items():
+            bad = [k for k, v in want.items()
+                   if r["update_digests"][part][k] != v]
+            if bad:
+                failed.append(f"rank {r['rank']}: the update's {part} "
+                              f"blocks differ from one device's: {bad}")
+        launched = {k: v for k, v in r["launches"].items() if v}
+        if launched:
+            failed.append(f"rank {r['rank']}: hand-written kernels "
+                          f"launched {launched}")
+        if not r["finite"]:
+            failed.append(f"rank {r['rank']}: a loss or grad norm of the "
+                          "launcher is not finite")
+    la, pr = r0["launcher"], r0["profile"]
+    args = TRAIN_SHARDED_ARGV
+    tokens = int(args[args.index("--batch") + 1]) * int(
+        args[args.index("--seq") + 1])
+    n_params = M.param_count(train_sharded_cfg(reduced))
+    step_s = float(np.mean(la["times"][1:]))
+    flops_ms = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+    opt_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
+    stats = pr["stats"]
+    kinds = sorted({k[:-6] for k in stats if k.endswith("_calls")})
+    per_step = {k: dict(calls=stats.get(f"{k}_calls", 0),
+                        bytes=stats.get(f"{k}_bytes", 0),
+                        ms=stats.get(f"{k}_s", 0.0) * 1e3) for k in kinds}
+    peaks = [r["launcher"]["peak"] for r in outs]
+    out = dict(
+        ranks=len(outs), spawn_s=spawn_s, devices=[r["device"] for r in outs],
+        cut_leaf_err=leaf_err, cut_worst=worst, cut_loss=r0["cut"]["loss"],
+        cut_loss_one=ref["loss"], cut_seconds=r0["cut"]["seconds"],
+        step_times_s=la["times"], ms_per_step=step_s * 1e3,
+        tok_s=tokens / step_s, bound_ms=flops_ms + opt_ms,
+        losses=[h["loss"] for h in la["history"]],
+        grad_norms=[h["grad_norm"] for h in la["history"]],
+        launcher_seconds=la["seconds"], launcher_stats=la["stats"],
+        step_collectives=per_step,
+        step_staging_ms=stats.get("staging_s", 0.0) * 1e3,
+        step_staged_bytes=stats.get("staged_bytes", 0),
+        step_wall_ms=pr["wall_ms"], step_busy_ms=pr.get("busy_ms"),
+        step_busy_share=pr["busy_ms"] / pr["wall_ms"],
+        step_launches=pr["launches"], top_kernels=pr["top_kernels"],
+        peak_bytes_by_rank=peaks, peak_bytes_sum=sum(peaks),
+        param_bytes_by_rank=[r["launcher"]["param_bytes"] for r in outs],
+        state_bytes_by_rank=[r["launcher"]["state_bytes"] for r in outs],
+        launches_by_rank=[r["launches"] for r in outs])
+    log(f"[train-sharded] qwen3-4b full width, 2 layers, {len(outs)} gloo "
+        f"ranks ({sorted(set(out['devices']))}), mesh "
+        f"{TRAIN_SHARDED_MESH[0]}, batch 8, seq 128: worst gradient leaf "
+        f"against one device {worst:.5f} (limit {tol['card_grad']}), losses "
+        f"{[round(x, 5) for x in out['cut_loss']]} against "
+        f"{[round(x, 5) for x in ref['loss']]}; the update's blocks bit for "
+        f"bit; {smi}")
+    log(f"[train-sharded] the launcher, qwen3-4b full width and depth, "
+        f"{len(outs)} ranks: {out['ms_per_step']:.3f} ms a step "
+        f"({out['tok_s']:.2f} tok/s) over steps 2-3 (step 3 profiled on "
+        f"rank 0; steps {[round(t, 3) for t in la['times']]} s) against "
+        f"the one-device "
+        f"bound {out['bound_ms']:.3f} ms; losses "
+        f"{[round(x, 4) for x in out['losses']]}, grad norms "
+        f"{[round(x, 4) for x in out['grad_norms']]}; peak "
+        f"{[round(p / 2**30, 3) for p in peaks]} GiB by rank, "
+        f"{sum(peaks) / 1e9:.3f} GB together; parameter blocks "
+        f"{[round(b / 1e9, 3) for b in out['param_bytes_by_rank']]} GB, "
+        f"moments {[round(b / 1e9, 3) for b in out['state_bytes_by_rank']]}"
+        f" GB; the one device's reference and the ranks {spawn_s:.1f} s; "
+        f"{smi}")
+    log(f"[train-sharded] the launcher's step 3 (rank 0, torch.profiler): "
+        f"wall "
+        f"{pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} ms "
+        f"({100 * out['step_busy_share']:.1f}%), {pr['launches']} kernel "
+        f"launches; collectives {per_step}; staged "
+        f"{out['step_staged_bytes'] / 1e9:.3f} GB in "
+        f"{out['step_staging_ms']:.3f} ms; {smi}")
+    if failed:
+        raise AssertionError("train_sharded: " + "; ".join(failed))
+    return out
+
+
+def train_sharded_reference(cfg2, dev, ref_path, ref: dict) -> None:
+    """The one device's side of the ``train_sharded`` phase, into ``ref``:
+    three train steps of ``cfg2`` (its first gradients written to
+    ``ref_path`` for the ranks, by a rename once whole), and the update
+    from those gradients cut into each rank's blocks as digests (hashed
+    in threads while the ranks run).  Once its tensors have left the card
+    it writes ``ref_path`` with the suffix ``.freed`` (the ranks' launcher
+    waits for it: the card holds the four ranks' full-depth state and
+    little more); a failure writes the suffix ``.failed`` so that the
+    ranks stop waiting."""
+    import concurrent.futures
+    import torch
+    from repro_torch.distributed.sharding import block
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import model as M
+    from repro_torch.train import golden as G
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+    try:
+        t0 = time.time()
+        cut = TRAIN_SHARDED_CUT
+        adamw = O.AdamWConfig(**cut["adamw"])
+        params = M.init_params(cfg2, torch.Generator(dev).manual_seed(
+            cut["weights_seed"]), dev)
+        first = M.tree_map(torch.clone, params)
+        one = G.train_run(cfg2, cut, dev, params=params)
+        del params
+        tmp = ref_path.with_suffix(".tmp")
+        torch.save(one["grads"], tmp)
+        tmp.rename(ref_path)
+        ref["steps_s"] = time.time() - t0
+        p, st, _ = O.update(adamw, first, M.unflatten(
+            {k: v.to(dev) for k, v in one.pop("grads").items()}),
+            O.init_state(first), donate=True)
+        host = {part: {k: v.cpu() for k, v in M.flatten(tree).items()}
+                for part, tree in (("params", p), ("m", st.m), ("v", st.v))}
+        del p, st, first
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ref_path.with_suffix(".freed").write_text("")
+        p_sh = M.flatten(S.make_train_step(
+            cfg2, AbstractMesh(*TRAIN_SHARDED_MESH), adamw)[2]["params"])
+        meshes = [AbstractMesh(*TRAIN_SHARDED_MESH, rank=r) for r in range(4)]
+        keys = [(r, part, k) for r in range(4) for part in host
+                for k in host[part]]
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            digests = pool.map(lambda key: tensor_digest(block(
+                host[key[1]][key[2]], p_sh[key[2]].spec, meshes[key[0]])),
+                keys)
+            table = [{part: {} for part in host} for _ in range(4)]
+            for (r, part, k), d in zip(keys, digests):
+                table[r][part][k] = d
+        ref.update(one, update_digests=table, seconds=time.time() - t0)
+    except BaseException as e:
+        ref["error"] = e
+        ref_path.with_suffix(".failed").write_text(repr(e))
+
+
+def phase_train_sharded(smi, device="cuda", reduced=False):
+    """The LM's sharded train step on 4 gloo ranks sharing the card: the
+    one-device port on the card (``train_sharded_reference``: qwen3-4b at
+    full width with 2 layers, three train steps, the update from its
+    first gradients cut into each rank's blocks as digests) while the
+    ranks start (``train_sharded_rank``), each held against it; no
+    hand-written kernel may launch (the reduced configs' sharded train
+    step on the card is the ``gpu`` cases').  ``device`` "cpu" and
+    ``reduced`` rehearse it on the host with qwen3-4b's reduced config."""
+    import threading
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train import golden as G
+    t0 = time.time()
+    K.reset_launches()
+    G.exact_matmuls()
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        device)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ref_path = ROOT / "build" / "train_sharded" / "ref_grads.pt"
+    ref_path.parent.mkdir(parents=True, exist_ok=True)
+    marks = [ref_path.with_suffix(s) for s in (".freed", ".failed")]
+    for stale in [ref_path] + marks:
+        stale.unlink(missing_ok=True)
+    ref = {}
+    worker = threading.Thread(target=train_sharded_reference, args=(
+        train_sharded_cfg(reduced, 2), dev, ref_path, ref))
+    worker.start()
+    argv = TRAIN_SHARDED_ARGV + (["--reduced", "--device", "cpu"]
+                                 if reduced else [])
+    job = dict(mesh=TRAIN_SHARDED_MESH, argv=argv, cut=TRAIN_SHARDED_CUT,
+               ref=str(ref_path), device=dev.type, reduced=reduced)
+    try:
+        outs = run_ranks(train_sharded_rank, 4, job, backend="gloo",
+                         timeout=900)
+    finally:
+        worker.join()
+    if "error" in ref:
+        raise ref["error"]
+    out = train_sharded_check(outs, ref, smi, time.time() - t0, reduced)
+    for path in [ref_path] + marks:
+        path.unlink(missing_ok=True)
+    launched = {k: v for k, v in K.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"train_sharded: hand-written kernels launched "
+                             f"{launched}")
+    seconds = time.time() - t0
+    log(f"[train-sharded] no hand-written kernel launched on any rank; the "
+        f"one device's steps {ref['steps_s']:.1f} s, its digests done at "
+        f"{ref['seconds']:.1f} s; phase {seconds:.1f} s")
+    out["seconds"] = seconds
+    out["rank_launches"] = out["launches_by_rank"]
+    return out
+
+
 def main() -> int:
     try:
         return run()
@@ -3916,6 +4531,17 @@ def run() -> int:
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_lm_sharded.json").write_text(json.dumps(
             dict(device=name, nvidia_smi=smi, lm_sharded=lm_sharded,
+                 phase_seconds=seconds), indent=1, default=str))
+        log(smi)
+        return 0
+    if "--train-sharded-only" in sys.argv[1:]:
+        # the sharded training phase alone; no kernels line and no result
+        # line
+        train_sharded = timed("train_sharded", phase_train_sharded, smi)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_train_sharded.json").write_text(json.dumps(
+            dict(device=name, nvidia_smi=smi, train_sharded=train_sharded,
                  phase_seconds=seconds), indent=1, default=str))
         log(smi)
         return 0
@@ -3975,6 +4601,7 @@ def run() -> int:
     lm = timed("lm", phase_lm, smi)
     train_ = timed("train", phase_train, smi)
     lm_sharded = timed("lm_sharded", phase_lm_sharded, smi)
+    train_sharded = timed("train_sharded", phase_train_sharded, smi)
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)
@@ -3991,7 +4618,9 @@ def run() -> int:
             **paper["launches"],
             **{f"bench {g}": v for g, v in bench["launches"].items()},
             **{f"lm_sharded rank {r}": v
-               for r, v in enumerate(lm_sharded["rank_launches"])}}
+               for r, v in enumerate(lm_sharded["rank_launches"])},
+            **{f"train_sharded rank {r}": v
+               for r, v in enumerate(train_sharded["rank_launches"])}}
     sources = {
         "cheap_fused": ("src/repro_torch/csrc/cheap_fused.cu",
                         "src/repro/kernels/cheap_fused/cheap_fused.py:367",
@@ -4044,6 +4673,7 @@ def run() -> int:
              launcher=launcher,
              routes=routes, serve=serve, sharded=sharded, paper=paper,
              bench=bench, lm=lm, lm_sharded=lm_sharded, train=train_,
+             train_sharded=train_sharded,
              phase_seconds=seconds,
              seconds=time.time() - t_all),
         indent=1,
@@ -4103,6 +4733,12 @@ def run() -> int:
             "launches", "busy_share")} for a, r in train_["full"].items()},
         resume_equal=train_["resume"]["equal"],
         seconds=train_["seconds"])))
+    log("[train-sharded-summary] " + json.dumps(dict(
+        card=smi, **{k: train_sharded[k] for k in (
+            "ms_per_step", "tok_s", "bound_ms", "step_collectives",
+            "step_staging_ms", "step_busy_share", "step_launches",
+            "peak_bytes_by_rank", "peak_bytes_sum", "cut_worst")},
+        seconds=train_sharded["seconds"])))
     log(f"[seconds] {time.time() - t_all:.1f}")
     log(smi)
     print(json.dumps({"kernels": summary}))

@@ -235,11 +235,13 @@ def gather_tree(tree: Dict, shardings: Dict) -> Dict:
     return gather_specs(tree, specs, mesh)
 
 
-def gather_specs(tree: Dict, specs: Dict, mesh) -> Dict:
+def gather_specs(tree: Dict, specs: Dict, mesh, all_gather=None) -> Dict:
     """Every leaf of ``tree`` gathered along each dim its spec (a congruent
     tree of specs) splits, a dim at a time: the leaves split over the same
     axes go in one packed ``Mesh.all_gather`` (the same calls, in the same
-    order, on every rank)."""
+    order, on every rank), or ``all_gather(tensors, dims, axes)`` (one
+    with a gradient: ``models.part.gather_fsdp``)."""
+    all_gather = all_gather or mesh.all_gather
     leaves, todo = _flat(tree), {}
     for path, spec in _flat(specs).items():
         todo[path] = [(d, axes_of(e)) for d, e in enumerate(spec)
@@ -251,8 +253,8 @@ def gather_specs(tree: Dict, specs: Dict, mesh) -> Dict:
                 d, axes = steps.pop(0)
                 groups.setdefault(axes, []).append((path, d))
         for axes, items in groups.items():
-            got = mesh.all_gather([leaves[p] for p, _ in items],
-                                  [d for _, d in items], axes)
+            got = all_gather([leaves[p] for p, _ in items],
+                             [d for _, d in items], axes)
             leaves.update({p: g for (p, _), g in zip(items, got)})
     return _unflat(leaves, tree)
 

@@ -8,8 +8,9 @@ holding its own coordinates, its device, one process group per axis, and
 the collectives its programs issue: ``all_gather_rows`` and
 ``all_reduce_sum`` over the whole mesh and ``ring_shift`` and
 ``all_to_all`` along one axis (the sharded chunk program), ``all_gather``
-along a dim and ``all_reduce`` (sum or max) over one axis or a tuple of
-axes (the LM's FSDP, TP and EP layers).  Ranks are laid out row-major over
+along a dim, its adjoint ``reduce_scatter`` and ``all_reduce`` (sum or
+max) over one axis or a tuple of axes (the LM's FSDP, TP and EP layers and
+their gradients).  Ranks are laid out row-major over
 the axes, so a rank's global number is its shard id
 (``pipeline.sharded_chunk_fn``).  ``AbstractMesh`` is a mesh's shape and
 axis names without ranks (``make_production_mesh``; the sharding rules
@@ -26,7 +27,8 @@ nothing switches backend silently.
 ``spawn`` start method, a ``file://`` store in a fresh temporary
 directory, a timeout on every group, each rank's intra-op threads cut to
 its share of the host's), returns each rank's result, and raises, after
-killing every rank, when one fails or the run overruns.
+killing every rank, when one fails or the run overruns.  A rank whose
+parent dies (a launcher killed mid-run) exits at once.
 """
 from __future__ import annotations
 
@@ -35,10 +37,12 @@ import contextlib
 import datetime
 import math
 import multiprocessing
+import multiprocessing.connection
 import os
 import pathlib
 import pickle
 import tempfile
+import threading
 import time
 import traceback
 from typing import Dict, Optional, Sequence, Tuple
@@ -49,11 +53,21 @@ import torch.distributed as dist
 
 from repro_torch.core.pipeline import check_device
 
+F32 = torch.float32
 # How long a collective may wait for its peers before the group fails.
 GROUP_TIMEOUT_S = 120.0
 # Each rank's tensors are packed into one buffer; segments start 8-byte
 # aligned so every dtype views back in place.
 _ALIGN = 8
+# The largest message ``reduce_scatter`` packs (a larger tensor goes
+# alone): its device copies of a message are a few times its size.
+MESSAGE_BYTES = 1 << 28
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a sum of ``dtype`` values accumulates in: f32, or f64
+    for f64."""
+    return torch.promote_types(dtype, F32)
 
 
 def _check_backend(device: torch.device, backend: Optional[str],
@@ -282,6 +296,76 @@ class Mesh(AbstractMesh):
                        for i, d in enumerate(dims)]
         return tensors
 
+    def reduce_scatter(self, tensors: Sequence[torch.Tensor],
+                       dims: Sequence[int], axes, sum_axes=None) -> list:
+        """The adjoint of ``all_gather(tensors, dims, axes)``: each tensor
+        (whole along its dim of ``dims`` over ``axes``) cut to the rank's
+        block, summed over the ranks of each axis of ``sum_axes`` (default
+        all of ``axes``); along an axis not in ``sum_axes`` the rank keeps
+        its own block.  The sums run in f32, axis by axis (the first the
+        slowest) and, within an axis, in coordinate order, the same on
+        every rank (in f64 for f64 tensors); each result is rounded once
+        to its tensor's dtype.
+        One ``all_to_all`` an axis carries the tensors, packed, up to
+        ``MESSAGE_BYTES`` a message (a tensor past it goes alone): block j
+        of each goes to the rank of coordinate j."""
+        out, batch, size = [None] * len(tensors), [], 0
+        for i, t in enumerate(tensors):
+            if batch and size + t.nbytes > MESSAGE_BYTES:
+                self._reduce_scatter(tensors, dims, axes, sum_axes, batch,
+                                     out)
+                batch, size = [], 0
+            batch.append(i)
+            size += t.nbytes
+        if batch:
+            self._reduce_scatter(tensors, dims, axes, sum_axes, batch, out)
+        return out
+
+    def _reduce_scatter(self, tensors, dims, axes, sum_axes, batch,
+                        out) -> None:
+        """``reduce_scatter`` of the tensors numbered ``batch``, into
+        ``out``: one message an axis, the device's copy of it freed once
+        staged, each sum accumulated in place."""
+        dtypes = [tensors[i].dtype for i in batch]
+        dims = [dims[i] for i in batch]
+        cur = [tensors[i] for i in batch]
+        live = self._live_axes(axes)
+        summed = live if sum_axes is None else self._live_axes(sum_axes)
+        for a in live:
+            n, c = self.shape[a], self.coords[a]
+            if a not in summed:
+                cur = [t.narrow(d, c * (t.shape[d] // n), t.shape[d] // n)
+                       for t, d in zip(cur, dims)]
+                continue
+            chunks = [t.chunk(n, dim=d) for t, d in zip(cur, dims)]
+            metas, seg = _layout([ch[0] for ch in chunks])
+            buf = torch.empty(n * seg, dtype=torch.uint8,
+                              device=cur[0].device)
+            for j in range(n):
+                for ch, (off, _, _, nb) in zip(chunks, metas):
+                    buf[j * seg + off:j * seg + off + nb].copy_(
+                        ch[j].contiguous().reshape(-1).view(torch.uint8))
+            del chunks
+            nbytes = buf.nbytes
+            wire = self._to_wire(buf)
+            del buf
+            recv = torch.empty_like(wire)
+            with self._collective("reduce_scatter", nbytes):
+                dist.all_to_all_single(recv, wire, group=self.groups[a])
+            del wire
+            parts = [_unpack(p, metas)
+                     for p in self._from_wire(recv).chunk(n)]
+            del recv
+            cur = []
+            for i, dt in enumerate(dtypes):
+                acc = parts[0][i].to(acc_dtype(dt), copy=True)
+                for p in parts[1:]:
+                    acc.add_(p[i])
+                cur.append(acc)
+            del parts
+        for i, t, dt in zip(batch, cur, dtypes):
+            out[i] = t.to(dt)
+
     def all_reduce(self, x: torch.Tensor, axes,
                    op: str = "sum") -> torch.Tensor:
         """The elementwise sum (or, ``op='max'``, maximum) of ``x`` over
@@ -300,6 +384,17 @@ class Mesh(AbstractMesh):
     def barrier(self) -> None:
         """Wait until every rank of the mesh gets here."""
         self.all_reduce_sum(torch.zeros(1, device=self.device))
+
+
+def _layout(tensors: Sequence[torch.Tensor]):
+    """``_pack``'s (offset, dtype, shape, bytes) of each tensor, and the
+    packed size (``reduce_scatter`` writes its segments in place)."""
+    metas, off = [], 0
+    for t in tensors:
+        nb = t.numel() * t.element_size()
+        metas.append((off, t.dtype, t.shape, nb))
+        off += nb + (-nb % _ALIGN)
+    return metas, off
 
 
 def _pack(tensors: Sequence[torch.Tensor]):
@@ -401,9 +496,12 @@ def parse_mesh(spec: str, n_devices: int):
         dims = (1, 1) if n_devices == 1 else (n_devices // 2, 2)
         names = ("data", "model")
     else:
-        dims = tuple(int(x) for x in spec.split("x"))
-        names = ("pod", "data", "model")[-len(dims):]
-    if len(dims) != len(names) or min(dims) < 1:
+        try:
+            dims = tuple(int(x) for x in spec.split("x"))
+        except ValueError:
+            dims = ()
+        names = ("pod", "data", "model")[-len(dims):] if dims else ()
+    if not dims or len(dims) != len(names) or min(dims) < 1:
         raise ValueError(f"--mesh {spec}: give 'auto' or 2 or 3 dims "
                          "like 2x2")
     if math.prod(dims) == 1:
@@ -414,9 +512,19 @@ def parse_mesh(spec: str, n_devices: int):
 # --------------------------------------------------------------------------- #
 # Spawning the ranks of one process group on this host
 # --------------------------------------------------------------------------- #
+def _exit_with(sentinel) -> None:
+    """Wait for the parent's sentinel, then end this rank at once."""
+    multiprocessing.connection.wait([sentinel])
+    os._exit(1)
+
+
 def _rank_main(rank: int, world_size: int, backend: str,
                workdir: str) -> None:
     out = pathlib.Path(workdir)
+    parent = multiprocessing.parent_process()
+    if parent is not None:
+        threading.Thread(target=_exit_with, args=(parent.sentinel,),
+                         daemon=True).start()
     try:
         fn, args = pickle.loads((out / "task.pkl").read_bytes())
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size),

@@ -6,8 +6,9 @@ score matrix), in the reference's order of operations: its chunk size,
 its ``NEG_INF`` mask value and its f32 accumulation.
 
 On a mesh (``part``) attention runs over this rank's heads: the q, k and
-v projections are column-parallel and ``wo`` row-parallel (its partial
-output summed over 'model').  Where the heads do not divide over 'model'
+v projections are column-parallel (``column_parallel``: the input's
+gradient summed over 'model') and ``wo`` row-parallel (its partial output
+summed over 'model').  Where the heads do not divide over 'model'
 (granite's single KV head, whose cache ``cache_spec`` splits on head_dim)
 the projections are gathered whole, the cache keeps the rank's block and
 is gathered to attend, and each of the rank's query heads attends to its
@@ -80,12 +81,32 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, mesh=None, d_ff: int = 0) -> torch.Tensor:
     """On a mesh, ``d_ff`` is the whole hidden width: a rank holding fewer
     rows of ``w_down`` has a partial output, summed over 'model'."""
-    g = einsum("bsd,df->bsf", x, w_gate)
-    u = einsum("bsd,df->bsf", x, w_up)
+    g, u = column_parallel(x, (w_gate, w_up), (d_ff, d_ff), mesh)
     h = F.silu(g.to(F32)).to(x.dtype) * u
     if w_down.shape[0] < d_ff:
         return row_parallel(h, w_down, mesh)
     return einsum("bsf,fd->bsd", h, w_down)
+
+
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return einsum("bsd,dx->bsx", x, w)
+
+
+def column_parallel(x: torch.Tensor, ws, widths, mesh,
+                    prod=_product) -> list:
+    """``[prod(x, w) for w in ws]`` (x @ w).  On a mesh a ``w`` holding
+    fewer columns than its whole width (``widths``) is column-parallel:
+    the rank computes its columns from the whole ``x``, whose gradient is
+    then summed over 'model' (``part.column_products``, one sum for all
+    of them)."""
+    split = [part.sharded(mesh) and w.shape[-1] < n
+             for w, n in zip(ws, widths)]
+    out = [None if s else prod(x, w) for w, s in zip(ws, split)]
+    if any(split):
+        cols = iter(part.column_products(
+            x, [w for w, s in zip(ws, split) if s], mesh, prod))
+        out = [next(cols) if s else o for o, s in zip(out, split)]
+    return out
 
 
 def row_parallel(a: torch.Tensor, b: torch.Tensor, mesh) -> torch.Tensor:
@@ -188,13 +209,15 @@ def update_slice(buf: torch.Tensor, val: torch.Tensor,
 
 
 def project_heads(x: torch.Tensor, w: torch.Tensor, n: int, D: int,
-                  mesh=None) -> torch.Tensor:
+                  mesh=None, t=None) -> torch.Tensor:
     """``x @ w`` as (B, S, heads, D).  On a mesh: the rank's heads where
     ``w``'s columns lie over 'model' and ``n`` divides, else all ``n``
-    (the columns gathered)."""
+    (the columns gathered); ``t``, the product ``column_parallel`` made,
+    if given."""
     if not part.sharded(mesh):
         return einsum("bsd,dhx->bshx", x, w.reshape(x.shape[-1], n, D))
-    t = einsum("bsd,dx->bsx", x, w)
+    if t is None:
+        t, = column_parallel(x, (w,), (n * D,), mesh)
     if t.shape[-1] < n * D and n % part.tp_size(mesh):
         t = part.tp_gather(t, -1, mesh)
     return t.reshape(*t.shape[:2], -1, D)
@@ -253,7 +276,14 @@ def _own_kv(q: torch.Tensor, kv, H: int, K: int, mesh):
 
 
 def attend(q, k, v, H: int, K: int, mesh=None, **kw) -> torch.Tensor:
-    """``mha_online`` of the rank's query heads (``_own_kv``)."""
+    """``mha_online`` of the rank's query heads (``_own_kv``).  Where the
+    rank computes its own query heads against all K KV heads, those
+    enter a computation that differs by 'model' rank
+    (``part.tp_copy``)."""
+    if q.shape[2] < H:
+        k, v = (part.tp_copy(t, mesh)
+                if torch.is_tensor(t) and t.shape[2] == K else t
+                for t in (k, v))
     return mha_online(q, _own_kv(q, k, H, K, mesh), _own_kv(q, v, H, K, mesh),
                       **kw)
 
@@ -272,19 +302,26 @@ def attention(x: torch.Tensor, p: dict, spec: AttnSpec, *,
     """
     from repro_torch.models.part import constrain
     H, K, D = spec.n_heads, spec.n_kv, spec.d_head
-    q = project_heads(x, p["wq"], H, D, mesh)
+    names, widths = ("wq", "wk", "wv"), (H * D, K * D, K * D)
+    n = 1 if ctx_kv is not None else 3
+    ts = (column_parallel(x, [p[k] for k in names[:n]], widths[:n], mesh)
+          if part.sharded(mesh) else [None] * n)
+    q = project_heads(x, p["wq"], H, D, mesh, ts[0])
     q = constrain(q, mesh, ("dp", None, "tp", None))
     if ctx_kv is None:
-        k = project_heads(x, p["wk"], K, D, mesh)
-        v = project_heads(x, p["wv"], K, D, mesh)
+        k = project_heads(x, p["wk"], K, D, mesh, ts[1])
+        v = project_heads(x, p["wv"], K, D, mesh, ts[2])
         k = constrain(k, mesh, ("dp", None, "tp", None))
         v = constrain(v, mesh, ("dp", None, "tp", None))
     else:
         k, v = ctx_kv
     if spec.qk_norm:
-        q = rms_norm(q, p["q_norm"])
+        # a norm over head_dim of the rank's own heads: its gradient is
+        # summed over 'model'
+        own = lambda t, n, w: part.tp_copy(w, mesh) if t.shape[2] < n else w
+        q = rms_norm(q, own(q, H, p["q_norm"]))
         if ctx_kv is None:
-            k = rms_norm(k, p["k_norm"])
+            k = rms_norm(k, own(k, K, p["k_norm"]))
     if ctx_kv is None:
         q = apply_rope(q, pos, spec.rope_theta)
         k = apply_rope(k, pos, spec.rope_theta)

@@ -16,6 +16,9 @@ the one-device tensors' blocks, and ``init_cache`` allocates the rank's
 cache blocks (``cache_spec``).  ``forward``, ``prefill`` and
 ``decode_step`` then take the whole batch on every rank (each computes its
 rows: ``batch_specs``) and return the whole logits on every rank.
+``loss_fn`` computes the loss alike on every rank, and ``value_and_grad``
+gives each rank its gradient blocks (``part`` says how each collective's
+gradient flows).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch.nn as nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pipeline import check_device
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import column_parallel, rms_norm
 from repro_torch.distributed.sharding import (block, cache_shardings,
                                              local_shape)
 from repro_torch.models import part
@@ -227,15 +230,17 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_len: int,
 # Forward passes
 # --------------------------------------------------------------------------- #
 def _encode_ctx(params: Dict, cfg: ArchConfig, ctx: torch.Tensor,
-                mesh=None, remat: bool = True):
-    """Audio: run the stub frame embeddings through the encoder stack."""
+                mesh=None, remat: bool = True, batch_axes=()):
+    """Audio: run the stub frame embeddings through the encoder stack (on
+    a mesh, the rank's rows of a batch split over ``batch_axes``)."""
     if cfg.family != "audio":
         return ctx
     Tc = ctx.shape[1]
     x = ctx.to(BF16) + params["enc_pos"][None, :Tc, :]
     pos = torch.arange(Tc, device=x.device)
     x, _, _ = T.run_stack(params["enc_blocks"], x, cfg, pos=pos,
-                          blocks_key="enc_blocks", remat=remat, mesh=mesh)
+                          blocks_key="enc_blocks", remat=remat, mesh=mesh,
+                          batch_axes=batch_axes)
     return rms_norm(x, params["enc_final_norm"])
 
 
@@ -267,7 +272,8 @@ def _forward(params, tokens, cfg, ctx, cache, cache_index, remat, mesh):
     embed, head = params["embed"], params.get("lm_head")
     if specs is not None:
         outer = {k: params[k] for k in ("embed", "lm_head") if k in params}
-        outer = part.gather_fsdp(outer, {k: specs[k] for k in outer}, mesh)
+        outer = part.gather_fsdp(outer, {k: specs[k] for k in outer}, mesh,
+                                 bax)
         embed, head = outer["embed"], outer.get("lm_head")
     if embed.shape[0] == cfg.vocab:
         # the reference's one-hot matmul under a mesh gathers the same rows
@@ -286,8 +292,8 @@ def _forward(params, tokens, cfg, ctx, cache, cache_index, remat, mesh):
     else:
         cache_index = int(cache_index)
         pos = cache_index + torch.arange(S, device=x.device)
-    enc = (_encode_ctx(params, cfg, ctx, mesh=mesh, remat=remat)
-           if ctx is not None else None)
+    enc = (_encode_ctx(params, cfg, ctx, mesh=mesh, remat=remat,
+                       batch_axes=bax) if ctx is not None else None)
     x, new_cache, aux = T.run_stack(params["blocks"], x, cfg, pos=pos,
                                     cache=cache, cache_index=cache_index,
                                     ctx=enc, remat=remat, mesh=mesh,
@@ -296,8 +302,10 @@ def _forward(params, tokens, cfg, ctx, cache, cache_index, remat, mesh):
     if head is None:
         head = embed.T
     # the logits are rounded to bf16 once, as the reference's einsum of
-    # two bf16 operands is, then widened
-    logits = torch.matmul(x, head).to(F32)
+    # two bf16 operands is, then widened (on a mesh, the rank's vocabulary
+    # columns where the head splits them)
+    logits, = column_parallel(x, (head,), (cfg.vocab,), mesh, torch.matmul)
+    logits = logits.to(F32)
     return logits, new_cache, aux
 
 
@@ -310,7 +318,7 @@ def _whole_logits(logits: torch.Tensor, cfg: ArchConfig, mesh,
         logits = part.tp_gather(logits, -1, mesh)
     bax = part.batch_axes(mesh, batch)
     if bax:
-        logits = mesh.all_gather([logits], [0], bax)[0]
+        logits = part.gather([logits], [0], bax, mesh)[0]
     return logits
 
 
@@ -338,8 +346,11 @@ def value_and_grad(params: Dict, batch: Dict, cfg: ArchConfig, mesh=None,
                    ) -> Tuple[Tuple[torch.Tensor, Dict], Dict]:
     """``jax.value_and_grad(loss_fn, has_aux=True)``: ((loss, parts),
     grads), the gradients a tree like ``params`` (each leaf's dtype), by
-    autograd through ``loss_fn`` on leaves detached from ``params``."""
-    part.check_trainable(mesh)
+    autograd through ``loss_fn`` on leaves detached from ``params``.  On
+    a mesh of several devices ``params`` are the rank's blocks and so are
+    the gradients: the collectives' adjoints sum the partials of the
+    leaves they gather, and ``part.reduce_replicated`` those of the
+    leaves replicated over the axes the batch is split on."""
     flat = flatten(params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
     with torch.enable_grad():
@@ -348,7 +359,12 @@ def value_and_grad(params: Dict, batch: Dict, cfg: ArchConfig, mesh=None,
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True, materialize_grads=True)
     parts = {k: v.detach() for k, v in parts.items()}
-    return (loss.detach(), parts), unflatten(dict(zip(leaves, grads)))
+    grads = dict(zip(leaves, grads))
+    if part.sharded(mesh):
+        grads = part.reduce_replicated(
+            grads, flatten(part.param_specs(cfg, mesh)),
+            part.batch_axes(mesh, batch["tokens"].shape[0]), mesh)
+    return (loss.detach(), parts), unflatten(grads)
 
 
 def prefill(params: Dict, tokens: torch.Tensor, cfg: ArchConfig, *,

@@ -12,7 +12,10 @@ a rank computes its own experts' slots (a partial output summed over
 'model'), the shared expert column- then row-parallel.  Token groups are
 the whole batch's, as on one device: where the rank's rows do not form
 whole groups its tokens are gathered over the DP axes first, so capacity
-drops the tokens one device drops.
+drops the tokens one device drops.  Every rank of those axes then routes
+and computes the same tokens: the weights' gradients are each the whole
+(``part.replica_share``).  The router, the experts and a split shared
+expert take their input through ``part.tp_copy``.
 """
 from __future__ import annotations
 
@@ -63,8 +66,9 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, mesh=None,
     # routes every rank's tokens and keeps its own rows' outputs
     whole = bool(batch_axes) and (B * S) % GROUP != 0
     if whole:
-        x = mesh.all_gather([x], [0], batch_axes)[0]
+        x = part.gather([x], [0], batch_axes, mesh)[0]
         B = x.shape[0]
+        p = {k: part.replica_share(v, batch_axes, mesh) for k, v in p.items()}
     T = B * S
     Tp = -(-T // GROUP) * GROUP                # pad to a group multiple
     xf = x.reshape(T, d)
@@ -75,9 +79,14 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, mesh=None,
     xg = xf.reshape(nG, GROUP, d)
     t_valid = (torch.arange(Tp, device=x.device) < T).reshape(nG, GROUP)
 
-    logits = einsum("gtd,de->gte", xg, p["router"]).to(F32)
-    if logits.shape[-1] < E:                   # the router's E over 'model'
-        logits = part.tp_gather(logits, -1, mesh)
+    # the input of the products that differ by 'model' rank (the rank's
+    # router columns and experts)
+    xs = part.tp_copy(xg, mesh)
+    if p["router"].shape[-1] < E:              # the router's E over 'model'
+        logits = part.tp_gather(einsum("gtd,de->gte", xs, p["router"])
+                                .to(F32), -1, mesh)
+    else:
+        logits = einsum("gtd,de->gte", xg, p["router"]).to(F32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = _top_k(probs, k)                 # (nG, T, k)
     gate_vals = gate_vals / torch.clamp(
@@ -90,7 +99,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, mesh=None,
         # the rank holds whole groups, as many as every other: the batch's
         # means are the means of the ranks'
         n = axis_size(mesh, batch_axes)
-        both = mesh.all_reduce(torch.stack([frac, prob]), batch_axes) / n
+        both = part.all_sum(torch.stack([frac, prob]), batch_axes, mesh) / n
         frac, prob = both[0], both[1]
     aux = E * torch.mean(frac * prob)
 
@@ -117,7 +126,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, mesh=None,
         dispatch = part.tp_block(dispatch, 2, E_loc, mesh)
         combine = part.tp_block(combine, 2, E_loc, mesh)
     xg = constrain(xg, mesh, ("dp", None, None))
-    xe = einsum("gtec,gtd->gecd", dispatch, xg)                    # (nG,E,C,d)
+    xe = einsum("gtec,gtd->gecd", dispatch, xs if E_loc < E else xg)
     h_g = einsum("gecd,edf->gecf", xe, p["w_gate"])
     h_u = einsum("gecd,edf->gecf", xe, p["w_up"])
     h = F.silu(h_g.to(F32)).to(xe.dtype) * h_u
@@ -129,10 +138,12 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig, mesh=None,
         y = einsum("gtec,gecd->gtd", combine.to(ye.dtype), ye)
 
     if cfg.n_shared_experts:
-        g = einsum("gtd,df->gtf", xg, p["sh_gate"])
-        u = einsum("gtd,df->gtf", xg, p["sh_up"])
+        split = p["sh_down"].shape[0] < cfg.d_ff_expert * cfg.n_shared_experts
+        xh = xs if split else xg
+        g = einsum("gtd,df->gtf", xh, p["sh_gate"])
+        u = einsum("gtd,df->gtf", xh, p["sh_up"])
         sh = F.silu(g.to(F32)).to(xg.dtype) * u
-        if p["sh_down"].shape[0] < cfg.d_ff_expert * cfg.n_shared_experts:
+        if split:
             y = y + row_parallel(sh, p["sh_down"], mesh)
         else:
             y = y + einsum("gtf,fd->gtd", sh, p["sh_down"])

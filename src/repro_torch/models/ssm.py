@@ -8,7 +8,7 @@ chunks — O(S) total.  Dtypes and rounding points are the reference's.
 
 On a mesh the block computes every head on every rank of a 'model' line,
 as the reference's constraint of ``zxbcdt`` to ('dp', None, None) asks:
-``in_proj``'s columns are gathered, the cache's ``state`` (split on heads)
+``in_proj``'s columns are gathered (``layers.column_parallel``), the cache's ``state`` (split on heads)
 and ``conv`` (split on d_inner) are gathered to run the step and the rank
 keeps its blocks of the new ones, and ``out_proj`` is row-parallel (the
 rank's rows of the gated output, a partial sum over 'model').
@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import part
-from repro_torch.models.layers import einsum, rms_norm, row_parallel
+from repro_torch.models.layers import (column_parallel, einsum, rms_norm,
+                                       row_parallel)
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -126,8 +127,9 @@ def ssd_block(x: torch.Tensor, p: dict, cfg: ArchConfig,
     from repro_torch.models.part import constrain
     Bb, S, d = x.shape
     H, N, P = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
-    zxbcdt = einsum("bsd,de->bse", x, p["in_proj"])
-    if zxbcdt.shape[-1] < 2 * cfg.d_inner + 2 * N + H:
+    width = 2 * cfg.d_inner + 2 * N + H
+    zxbcdt, = column_parallel(x, (p["in_proj"],), (width,), mesh)
+    if zxbcdt.shape[-1] < width:             # the rank's columns
         zxbcdt = part.tp_gather(zxbcdt, -1, mesh)
     zxbcdt = constrain(zxbcdt, mesh, ("dp", None, None))
     z, xs, B_, C_, dt_raw = _split_proj(zxbcdt, cfg)

@@ -7,8 +7,9 @@ and parameters are stacked per pattern slot with a leading group axis G.
 The reference scans the groups (``lax.scan``); the port loops over them
 in Python, indexing each stacked tensor at the group.  On a mesh each
 group's leaves are gathered over the DP axes (FSDP) just before it runs
-(``part.gather_fsdp``), and the layers sum their row-parallel outputs
-over 'model' (``part``).
+(``part.gather_fsdp``; under remat inside the checkpointed group, so the
+backward pass gathers them again and reduce-scatters their gradients),
+and the layers sum their row-parallel outputs over 'model' (``part``).
 
 Families:
     dense   — pre-norm GQA attention + SwiGLU (SWA / qk-norm variants)
@@ -32,7 +33,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import part
 from repro_torch.models.layers import (AttnSpec, apply_rope, attend,
-                                       attention, mha_online, project_heads,
+                                       attention, column_parallel,
+                                       mha_online, project_heads,
                                        project_out, rms_norm, store_kv,
                                        swiglu, whole_kv)
 from repro_torch.models.part import constrain
@@ -340,8 +342,10 @@ def _apply_block(x, bp, kind: str, cfg: ArchConfig, *, pos, is_global=None,
 def _ctx_kv(ctx, p, cfg: ArchConfig, mesh=None):
     """Cross-attention keys and values of the context (B, Tc, d)."""
     K, D = cfg.n_kv, cfg.d_head
-    return (project_heads(ctx, p["wk"], K, D, mesh),
-            project_heads(ctx, p["wv"], K, D, mesh))
+    ts = (column_parallel(ctx, (p["wk"], p["wv"]), (K * D, K * D), mesh)
+          if part.sharded(mesh) else (None, None))
+    return (project_heads(ctx, p["wk"], K, D, mesh, ts[0]),
+            project_heads(ctx, p["wv"], K, D, mesh, ts[1]))
 
 
 def _windowed_attention(x, p, spec: AttnSpec, window, pos, cache,
@@ -354,9 +358,12 @@ def _windowed_attention(x, p, spec: AttnSpec, window, pos, cache,
     cache's dtype."""
     S = x.shape[1]
     H, K, D = spec.n_heads, spec.n_kv, spec.d_head
-    q = project_heads(x, p["wq"], H, D, mesh)
-    k = project_heads(x, p["wk"], K, D, mesh)
-    v = project_heads(x, p["wv"], K, D, mesh)
+    ts = (column_parallel(x, (p["wq"], p["wk"], p["wv"]),
+                          (H * D, K * D, K * D), mesh)
+          if part.sharded(mesh) else (None,) * 3)
+    q = project_heads(x, p["wq"], H, D, mesh, ts[0])
+    k = project_heads(x, p["wk"], K, D, mesh, ts[1])
+    v = project_heads(x, p["wv"], K, D, mesh, ts[2])
     q = constrain(q, mesh, ("dp", None, "tp", None))
     q = apply_rope(q, pos, spec.rope_theta)
     k = apply_rope(k, pos, spec.rope_theta)
@@ -437,7 +444,9 @@ def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
 
     On a mesh of several devices ``blocks`` are the rank's blocks: each
     group's are gathered over the DP axes (FSDP) just before it runs and
-    dropped after it; ``batch_axes`` as ``_apply_block`` takes them.
+    dropped after it (their gradients summed over ``batch_axes``, the DP
+    axes the batch is split on); ``batch_axes`` as ``_apply_block`` takes
+    them.
 
     The cache is updated in place (the reference donates it), so
     ``new_cache`` is ``cache``.  ``remat`` is the reference's
@@ -452,6 +461,8 @@ def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
     checkpointed = remat and cache is None and torch.is_grad_enabled()
 
     def group(x, gp, gc, g):
+        if specs is not None:
+            gp = part.gather_fsdp(gp, specs, mesh, batch_axes)
         aux = 0.0
         for j, kind in enumerate(pattern):
             slot = f"slot{j}"
@@ -472,8 +483,6 @@ def run_stack(blocks: Dict, x, cfg: ArchConfig, *, pos, cache=None,
     for g in range(G):
         gc = None if cache is None else _at(cache, g)
         gp = groups[g]
-        if specs is not None:
-            gp = part.gather_fsdp(gp, specs, mesh)
         if checkpointed:
             x, a = torch.utils.checkpoint.checkpoint(
                 group, x, gp, gc, g, use_reentrant=False)

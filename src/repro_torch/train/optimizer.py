@@ -32,6 +32,16 @@ reference's norm.  With clipping active, the clip scale can then differ
 in its last bit; with it inactive (scale 1) every other output is equal
 bit for bit.  Subnormal f32 values, which XLA's CPU code flushes to zero,
 are kept.
+
+On a mesh (ZeRO-3: ``shardings``, a tree of
+``distributed.sharding.NamedSharding`` congruent with the parameters) the
+parameters, gradients and moments are the rank's blocks and ``step`` is
+replicated.  ``global_norm`` sums each leaf's f64 squares over the axes
+its spec splits (one all-reduce for each set of axes; a replicated leaf
+counted once) before the same f32 rounding and tree-order sum, and
+``update`` runs the same elementwise arithmetic on the blocks: given the
+one-device gradients' blocks, its blocks equal the one-device update's
+bit for bit while the clip is inactive.
 """
 from __future__ import annotations
 
@@ -88,7 +98,8 @@ def tree_map(fn, tree, *rest):
 
 
 def init_state(params) -> AdamWState:
-    """Zero moments in f32 beside each parameter, step 0."""
+    """Zero moments in f32 beside each parameter, step 0 (on a mesh,
+    beside each of the rank's blocks)."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
     zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
@@ -96,11 +107,25 @@ def init_state(params) -> AdamWState:
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
 
 
-def abstract_state(params_abstract) -> AdamWState:
-    """The state's tree on the meta device (no allocation)."""
-    return init_state(tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
-                                                     device="meta"),
-                               params_abstract))
+def abstract_state(params_abstract, mesh=None) -> AdamWState:
+    """The state's tree on the meta device (no allocation); on a mesh of
+    several devices, the rank's blocks' shapes (``param_spec``)."""
+    meta = lambda p, shape: torch.empty(shape, dtype=p.dtype, device="meta")
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.distributed.sharding import (local_shape,
+                                                      param_shardings)
+        return init_state(tree_map(
+            lambda p, sh: meta(p, local_shape(tuple(p.shape), sh.spec, mesh)),
+            params_abstract, param_shardings(params_abstract, mesh)))
+    return init_state(tree_map(lambda p: meta(p, p.shape), params_abstract))
+
+
+def tree_leaves_of(shardings) -> List:
+    """The ``NamedSharding`` leaves of a tree of them, in tree order."""
+    if isinstance(shardings, dict):
+        return [x for k in sorted(shardings)
+                for x in tree_leaves_of(shardings[k])]
+    return [shardings]
 
 
 # --------------------------------------------------------------------------- #
@@ -171,20 +196,40 @@ def _chunks(t: torch.Tensor):
         yield t[i:i + rows]
 
 
-def _sq_sum(leaf: torch.Tensor) -> torch.Tensor:
-    """The leaf's sum of squares, summed in f64 and rounded to f32."""
-    acc = torch.zeros((), dtype=torch.float64, device=leaf.device)
-    for part in _chunks(leaf):
-        acc += torch.sum(torch.square(part.to(torch.float64)))
-    return acc.to(F32)
+def _sq_sums(leaves, shardings) -> List[torch.Tensor]:
+    """Each leaf's sum of squares in f64; with ``shardings`` (the leaves
+    the rank's blocks) summed over the axes each leaf's spec splits, one
+    all-reduce for each set of axes."""
+    sums = [torch.zeros((), dtype=torch.float64, device=leaf.device)
+            for leaf in leaves]
+    for s, leaf in zip(sums, leaves):
+        for piece in _chunks(leaf):
+            s += torch.sum(torch.square(piece.to(torch.float64)))
+    if shardings is None:
+        return sums
+    from repro_torch.distributed.sharding import axes_of
+    shards = tree_leaves_of(shardings)
+    groups: Dict[Tuple[str, ...], List[int]] = {}
+    for i, sh in enumerate(shards):
+        axes = tuple(a for a in sh.mesh.axis_names
+                     if any(a in axes_of(e) for e in sh.spec))
+        if sh.mesh._live_axes(axes):
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        mesh = shards[idx[0]].mesh
+        total = mesh.all_reduce(torch.stack([sums[i] for i in idx]), axes)
+        for i, t in zip(idx, total):
+            sums[i] = t
+    return sums
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the sum over the leaves (f32, in tree order) of each leaf's
-    sum of squares (see the module's note on exactness)."""
+    sum of squares (see the module's note on exactness); with
+    ``shardings`` the leaves are the rank's blocks."""
     total = None
-    for leaf in tree_leaves(tree):
-        s = _sq_sum(leaf)
+    for s in _sq_sums(tree_leaves(tree), shardings):
+        s = s.to(F32)
         total = s if total is None else total + s
     return _sqrt(total)
 
@@ -276,13 +321,15 @@ def _update_slice(p, g, m, v, k: Dict[str, torch.Tensor], dst) -> None:
 
 
 def update(cfg: AdamWConfig, params, grads, state: AdamWState,
-           donate: bool = False) -> Tuple[Any, AdamWState, Dict]:
+           donate: bool = False, shardings=None
+           ) -> Tuple[Any, AdamWState, Dict]:
     """One AdamW step.  Returns (params, state, {grad_norm, lr}); with
     ``donate`` the parameter and moment tensors (and the step) are updated
     in place and returned, else new tensors are.  ``grads`` may be bf16 or
     f32; each is clipped slice by slice, as ``clip_by_global_norm``
-    clips it."""
-    gnorm = global_norm(grads)
+    clips it.  With ``shardings`` every tree holds the rank's blocks
+    (ZeRO-3), and the gradient norm is the whole tree's."""
+    gnorm = global_norm(grads, shardings)
     step = int(state.step) + 1
     lr = _schedule_f32(cfg, step)
     dev = state.step.device

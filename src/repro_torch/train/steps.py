@@ -5,14 +5,13 @@ The reference's factories return ``(step, jit_for, shardings)``, where
 ``jit_for(batch_abstract)`` jits the step with sharded in/out specs and
 donates the cache (and, training, the parameters and optimizer state).
 Here ``jit_for`` checks the batch stand-ins against the factory's batch
-and returns the step, and a donated tree is updated in place.  The
-prefill and decode factories take a mesh (``launch.mesh.Mesh``: the step
-runs on this rank's blocks, ``models.part``) and their third item is the
-reference's: the ``params`` and ``cache`` shardings
-(``distributed.sharding``), replicated specs without a mesh.  The train
-step runs on one device (its third item holds the donated trees on the
-meta device); a mesh of several devices raises
-(``part.check_trainable``: the next slice).
+and returns the step, and a donated tree is updated in place.  Every
+factory takes a mesh (``launch.mesh.Mesh``: the step runs on this rank's
+blocks, ``models.part``) and its third item is the reference's: the
+``params`` and ``cache`` shardings (``distributed.sharding``), or for the
+train step the ``params`` and ``opt`` shardings (the moments' are the
+parameters', ZeRO-3; the step replicated); replicated specs without a
+mesh.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.distributed import sharding as shlib
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model as M
-from repro_torch.models.part import check_trainable
+from repro_torch.models import part
 from repro_torch.train import optimizer as opt
 
 
@@ -72,21 +71,33 @@ def _check_batch(cfg: ArchConfig, batch_abstract: Dict, batch: int,
             f"(ctx expected {want_ctx})")
 
 
+def _mesh_or_one(mesh):
+    """``mesh``, or without one an abstract (1, 1) mesh (every spec
+    replicated)."""
+    return mesh if mesh is not None else AbstractMesh((1, 1),
+                                                      ("data", "model"))
+
+
 def make_train_step(cfg: ArchConfig, mesh, adamw: opt.AdamWConfig,
                     donate: bool = True, microbatches: int = 1):
-    """Returns (step, jit_for, {params, opt} on the meta device).
+    """Returns (step, jit_for, {params, opt} shardings).
     ``step(params, opt_state, batch) -> (params, opt_state, metrics)``,
     metrics {loss, nll, aux, grad_norm, lr}: the gradient of
     ``model.loss_fn`` by autograd (the layer groups rematerialised), then
-    ``optimizer.update``, in place when ``donate``.
+    ``optimizer.update``, in place when ``donate``.  On a mesh of several
+    devices ``params`` and ``opt_state`` are the rank's blocks (the
+    shardings say which) and ``batch`` is the whole batch, of which the
+    rank computes its rows; every rank returns the same metrics.
 
     ``microbatches`` > 1 accumulates the gradient of M sequential slices
     of the batch in f32 (the reference's scan): each slice's gradient is
     added as ``acc + g.to(f32)``, the sum divided by M, the loss averaged,
-    and the parts are {nll: loss, aux: 0}."""
-    check_trainable(mesh)
-    params_abs = M.abstract_params(cfg)
-    opt_abs = opt.abstract_state(params_abs)
+    and the parts are {nll: loss, aux: 0}.  On a mesh each slice is split
+    over the DP axes as a whole batch is."""
+    p_sh = shlib.param_shardings(M.abstract_params(cfg), _mesh_or_one(mesh))
+    o_sh = opt.AdamWState(step=shlib.NamedSharding(p_sh["embed"].mesh, ()),
+                          m=p_sh, v=p_sh)
+    shardings = p_sh if part.sharded(mesh) else None
 
     def step(params, opt_state, batch):
         if microbatches == 1:
@@ -112,7 +123,8 @@ def make_train_step(cfg: ArchConfig, mesh, adamw: opt.AdamWConfig,
             loss = loss / microbatches
             parts = dict(nll=loss, aux=torch.zeros_like(loss))
         params, opt_state, om = opt.update(adamw, params, grads, opt_state,
-                                           donate=donate)
+                                           donate=donate,
+                                           shardings=shardings)
         metrics = dict(loss=loss, **parts, **om)
         return params, opt_state, metrics
 
@@ -129,15 +141,14 @@ def make_train_step(cfg: ArchConfig, mesh, adamw: opt.AdamWConfig,
                 f"{None if lab is None else tuple(lab.shape)} for tokens "
                 f"{tuple(tok.shape)}, {microbatches} microbatches")
         return step
-    return step, jit_for, dict(params=params_abs, opt=opt_abs)
+    return step, jit_for, dict(params=p_sh, opt=o_sh)
 
 
 def _shardings(cfg: ArchConfig, mesh, max_len: int, batch: int,
                kv_dtype) -> Dict:
     """The reference's {params, cache} shardings on ``mesh`` (one device:
     an abstract (1, 1) mesh, every spec replicated)."""
-    mesh = mesh if mesh is not None else AbstractMesh((1, 1),
-                                                      ("data", "model"))
+    mesh = _mesh_or_one(mesh)
     return dict(
         params=shlib.param_shardings(M.abstract_params(cfg), mesh),
         cache=shlib.cache_shardings(

@@ -31,6 +31,17 @@ from repro_torch.kernels.cheap_fused import ops as cf_ops     # noqa: E402
 PLANES = ("bucket_start", "entries_key", "entries_pos", "entries_cnt")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(radius=0, n_reads=6):
     cfg_j = JaxConfig(hash_bits=12, minimizer_radius=radius).with_mode(
         "ms_fixed")

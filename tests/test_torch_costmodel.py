@@ -45,6 +45,17 @@ NS = {"jax": types.SimpleNamespace(S=j_ssd, CM=j_cm, SIM=j_sim, WL=j_wl,
                                      F=t_faults)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _same(a, b, path="result"):
     """Exact equality of nested results: floats by their bits."""
     if dataclasses.is_dataclass(a) and not isinstance(a, type):

@@ -36,6 +36,17 @@ MESH8 = ((2, 2, 2), ("pod", "data", "model"))
 # --------------------------------------------------------------------------- #
 # Rank side (torch and repro_torch only)
 # --------------------------------------------------------------------------- #
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _index(planes, mode="ms_fixed", **cfg_kw):
     from repro_torch.core import MarsConfig
     from repro_torch.core.index import index_from_numpy

@@ -29,6 +29,17 @@ from repro_torch.kernels.event_detect import ops               # noqa: E402
 PLANES = ("bucket_start", "entries_key", "entries_pos", "entries_cnt")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(got, want, msg=""):
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)

@@ -36,6 +36,17 @@ FIELDS = ("t_start", "score", "mapped", "n_events")
 FLOAT_MODES = ("ms_float", "rh2")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _eq(got, want, msg=""):
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)

@@ -1508,3 +1508,53 @@ def test_lm_sharded_psum_int8_on_the_card(lm_sharded):
     want = G.psum_int8_host(G.collective_inputs()["x"])
     for r in lm_sharded:
         np.testing.assert_array_equal(r["psum"], want)
+
+
+@pytest.fixture(scope="module")
+def lm_sharded_train():
+    """The ten reduced configs' train step (``golden.train_run``) on a
+    (2, 2) mesh of 4 gloo ranks sharing the card, and on the card's one
+    device."""
+    dev = _card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train import golden as G
+    from repro_torch import kernels as K
+    G.exact_matmuls()
+    archs = tuple(sorted(LM_ARCHS))
+    ranks = run_ranks(G.mesh_train_run, 4, archs, (2, 2),
+                      ("data", "model"), "cuda", timeout=900)
+    K.reset_launches()
+    single = {a: G.train_run(get_config(a).reduced(), G.load(), dev)
+              for a in archs}
+    return ranks, single, dict(K.LAUNCHES)
+
+
+@pytest.mark.parametrize("arch", sorted(LM_ARCHS))
+def test_lm_sharded_train_reduced_on_the_card(lm_sharded_train, arch):
+    """Four gloo ranks sharing the card take each reduced config's train
+    step: the gathered gradient within the sharded golden's
+    ``card_grad`` of the card's one device leaf by leaf, three losses
+    within its ``loss`` of one device and of the JAX package's sharded
+    steps, the leaf norms within the family's bound of the golden's, the
+    learning rates equal, every rank alike; the ranks staged their
+    collectives through the host."""
+    from repro_torch.train import golden as G
+    ranks, single, _ = lm_sharded_train
+    for r in ranks:
+        assert r["stats"]["staged_bytes"] > 0
+        assert r["stats"]["reduce_scatter_calls"] > 0
+    sharded = G.load_sharded()
+    _, failed = G.sharded_train_deviations(
+        arch, [r["runs"][arch] for r in ranks], single[arch], G.load(),
+        sharded, sharded["tolerance"]["card_grad"])
+    assert not failed, failed
+
+
+def test_lm_sharded_train_launches_no_hand_kernel(lm_sharded_train):
+    """The sharded train path is plain torch: no hand-written kernel
+    launches on any rank, nor on the card's one device."""
+    ranks, _, launches = lm_sharded_train
+    for r in ranks:
+        assert not any(r["launches"].values()), r["launches"]
+    assert not any(launches.values()), launches

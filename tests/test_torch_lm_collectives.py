@@ -29,6 +29,17 @@ from repro_torch.models import golden as G  # noqa: E402
 JAX = G.load_sharded()["collectives"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stage(w, xb):
     return torch.tanh(xb @ w)
 

@@ -40,6 +40,17 @@ ARCHS = sorted(TC.ARCHS)
 ALL = ARCHS + sorted(TC.EXTRA_ARCHS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_tree(tree) -> dict:
     """{dotted path: (shape, dtype name)} of a JAX pytree of dicts."""
     flat, _ = jax.tree_util.tree_flatten_with_path(tree)
@@ -164,7 +175,11 @@ def test_only_a_single_device_mesh_is_accepted():
     """A one-device mesh (or none) runs the single-device path; a mesh of
     several devices is a mesh of ranks to spawn (``parse_mesh``), on
     which prefill and decode run sharded (``tests/test_torch_lm_sharded.py``)
-    and the train step still raises (the next slice)."""
+    and so does the train step: its shardings are the parameters' (the
+    moments beside them, the step replicated), and on a (1, 2) mesh of
+    gloo ranks its gathered gradient is the one device's within the
+    sharded golden's bound
+    (``tests/test_torch_lm_sharded_train*.py`` hold the rest)."""
     assert parse_mesh("auto", 1) is None
     assert parse_mesh("1x1", 1) is None
     assert parse_mesh("1x1x1", 4) is None
@@ -182,11 +197,22 @@ def test_only_a_single_device_mesh_is_accepted():
     for make in (TS.make_prefill_step, TS.make_decode_step):
         sh = make(cfg, four, 24, 2)[2]
         assert sh["params"]["embed"].spec == ("model", "data")
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="item 2c-ii"):
-        TS.make_train_step(cfg, four, TO.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="item 2c-ii"):
-        TM.value_and_grad(params, {}, cfg, mesh=four)
+    sh = TS.make_train_step(cfg, four, TO.AdamWConfig())[2]
+    assert sh["params"]["embed"].spec == ("model", "data")
+    assert sh["opt"].m is sh["params"] and sh["opt"].v is sh["params"]
+    assert sh["opt"].step.spec == ()
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train import golden as TG
+    ranks = run_ranks(TG.mesh_train_run, 2, ("qwen3-4b",), (1, 2),
+                      ("data", "model"), "cpu", 1, timeout=300)
+    got = ranks[0]["runs"]["qwen3-4b"]
+    one = TG.train_run(cfg, TG.load(), "cpu", steps=1)
+    errs = TG.leaf_errors(got["grads"], one["grads"])
+    assert max(errs.values()) <= TG.load_sharded()["tolerance"][
+        "sharded_grad"], errs
+    assert got["lr"] == one["lr"] and abs(got["loss"][0] - one["loss"][0]) \
+        <= TG.load_sharded()["tolerance"]["loss"]
+    assert ranks[1]["runs"]["qwen3-4b"]["loss"] == got["loss"]
 
 
 # --------------------------------------------------------------------------- #

@@ -35,6 +35,17 @@ RTOL = 1e-5
 TOL = G.load()["tolerance"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(a: np.ndarray, dtype="f32"):
     """The same array for both packages: (jax array, torch tensor)."""
     if dtype == "bf16":

@@ -33,6 +33,17 @@ BS, S = 2, 16
 INT8_ARCHS = ("h2o-danube-1.8b", "qwen3-4b")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def numpy_tree(tree):
     """A JAX parameter tree as numpy, bf16 leaves as their uint16 bits."""
     if isinstance(tree, dict):

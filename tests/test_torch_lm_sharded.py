@@ -57,6 +57,17 @@ FULL_ARCHS = ("granite-20b", "llama4-maverick-400b-a17b", "qwen3-4b",
               "whisper-medium")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rank() -> dict:
     """One rank of the (2, 2) mesh: every reduced config's prefill and
     decode logits (for FULL_ARCHS also the int8 cache's and the
@@ -80,8 +91,13 @@ def _rank() -> dict:
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         res = serve.serve(serve.parse_args(LAUNCH), mesh)
+    # a train step of reduced qwen3-4b on the same mesh
+    from repro_torch.train import golden as TG
+    train = TG.train_run(TC.get_config("qwen3-4b").reduced(), TG.load(),
+                         "cpu", mesh, steps=1)
     return dict(rank=mesh.rank, outs=outs, tokens=res["tokens"],
-                printed=printed.getvalue(), stats=dict(mesh.stats))
+                printed=printed.getvalue(), stats=dict(mesh.stats),
+                train=train)
 
 
 @pytest.fixture(scope="module")
@@ -159,13 +175,25 @@ def test_launcher_body_on_the_mesh(ranks):
         assert r["stats"]["all_reduce_calls"] > 0
 
 
-def test_meshes_that_cannot_be_honoured_raise():
+def test_meshes_that_cannot_be_honoured_raise(ranks):
+    """The train step is no longer among them: on the (2, 2) mesh every
+    rank's gathered gradient of reduced qwen3-4b is the one device's
+    within the sharded golden's bound, and its shardings are the
+    parameters' (``tests/test_torch_lm_sharded_train*.py`` hold the
+    rest).  NCCL on the CPU or on a shared card still raises."""
+    from repro_torch.train import golden as TG
     mesh = MESH.AbstractMesh((2, 2), ("data", "model"), rank=0)
     cfg = TC.get_config("qwen3-4b").reduced()
-    with pytest.raises(NotImplementedError, match="2c-ii"):
-        TS.make_train_step(cfg, mesh, TO.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="2c-ii"):
-        TM.value_and_grad({}, {}, cfg, mesh=mesh)
+    sh = TS.make_train_step(cfg, mesh, TO.AdamWConfig())[2]
+    assert sh["opt"].m["embed"].spec == ("model", "data")
+    one = TG.train_run(cfg, TG.load(), "cpu", steps=1)
+    tol = TG.load_sharded()["tolerance"]
+    for r in ranks:
+        got = r["train"]
+        assert max(TG.leaf_errors(got["grads"], one["grads"]).values()) \
+            <= tol["sharded_grad"]
+        assert abs(got["loss"][0] - one["loss"][0]) <= tol["loss"]
+        assert got["lr"] == one["lr"]
     # NCCL wants a card a rank: never on the CPU, nor ranks sharing a card
     with pytest.raises(ValueError, match="nccl"):
         MESH._check_backend(torch.device("cpu"), "nccl", 4)

@@ -55,6 +55,17 @@ MESHES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax():
     return pytest.importorskip("jax")
 

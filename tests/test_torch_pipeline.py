@@ -28,6 +28,17 @@ PLANES = ("bucket_start", "entries_key", "entries_pos", "entries_cnt")
 FIELDS = ("t_start", "score", "mapped", "n_events")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def s():
     cfg_j = JaxConfig(hash_bits=12).with_mode("ms_fixed")

@@ -25,6 +25,17 @@ MODES = ("ms_fixed", "ms_float", "rh2")
 FIELDS = ("t_start", "score", "mapped", "samples_used", "stage_of")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     ref = simulate.make_reference(8_000, seed=7)

@@ -36,6 +36,17 @@ PKGS = {"jax": types.SimpleNamespace(core=J, launch=jax_serve_rsga),
         "torch": types.SimpleNamespace(core=T, launch=serve_rsga)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     ref = simulate.make_reference(8_000, seed=5)

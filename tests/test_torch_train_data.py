@@ -31,6 +31,17 @@ from repro_torch.train import optimizer as TO  # noqa: E402
 # --------------------------------------------------------------------------- #
 # The token stream
 # --------------------------------------------------------------------------- #
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("n_ctx", [0, 3])
 def test_token_stream_batches_equal_reference(n_ctx):
     kw = dict(vocab=512, batch=4, seq=33, seed=7, n_ctx=n_ctx, d_model=16)

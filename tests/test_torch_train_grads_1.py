@@ -20,6 +20,17 @@ import torch_train_cases as C  # noqa: E402
 ARCHS = ["granite-20b", "h2o-danube-1.8b", "llama3-405b", "whisper-medium"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("arch,leaf", C.leaf_ids(ARCHS),
                          ids=lambda x: x)
 def test_leaf_gradient_within_family_tolerance(arch, leaf):

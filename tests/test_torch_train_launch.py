@@ -26,6 +26,17 @@ ARGS = ["--arch", "qwen3-4b", "--reduced", "--batch", "2", "--seq", "32",
         "--device", "cpu"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_launcher_prints_the_reference_lines(capsys, tmp_path,
                                              monkeypatch):
     """Six steps, logging every third, saving every fourth; the monitor's
@@ -64,11 +75,26 @@ def test_launcher_prints_the_reference_lines(capsys, tmp_path,
     assert lines[-1] == "done: 6 steps, final loss nan, stragglers=0"
 
 
-def test_launcher_takes_one_device_only():
+def test_launcher_takes_one_device_only(capfd):
+    """One device or a mesh of ranks: ``--mesh 1x2`` spawns 2 gloo ranks
+    and rank 0 prints the reference launcher's lines; an unknown
+    ``--mesh`` raises."""
     assert train.mesh_shape("auto", 1) == {"data": 1, "model": 1}
     assert train.mesh_shape("1x1x1", 1) == {"pod": 1, "data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        train.main(ARGS + ["--steps", "1", "--mesh", "2x1"])
+    res = train.run(train.parse_args(ARGS + ["--steps", "2", "--mesh",
+                                             "1x2"]))
+    lines = capfd.readouterr().out.splitlines()
+    assert lines[0] == ("arch=qwen3-4b-reduced devices=2 "
+                        "mesh={'data': 1, 'model': 2}")
+    assert re.fullmatch(r"step +1 loss=\d+\.\d{4} gnorm=\d+\.\d{2} "
+                        r"\d+\.\d{2}s \d+ tok/s", lines[1])
+    assert re.fullmatch(r"done: 2 steps, final loss \d+\.\d{4}, "
+                        r"stragglers=0", lines[-1])
+    assert len(lines) == 3 and len(res["ranks"]) == 2
+    assert res["ranks"][1]["history"] == res["history"]
+    assert "params" not in res          # each rank held its blocks
+    with pytest.raises(ValueError, match="--mesh"):
+        train.main(ARGS + ["--steps", "1", "--mesh", "2x"])
 
 
 def _run(cmd, env, **kw):

@@ -36,6 +36,17 @@ CONFIGS = [dict(lr=1e-3, warmup_steps=3, total_steps=8),
                 min_lr_ratio=0.0)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _draw(spec, rng, scale):
     if isinstance(spec, dict):
         return {k: _draw(v, rng, scale) for k, v in spec.items()}

@@ -24,6 +24,17 @@ GOLD = G.load()
 # configs whose groups hold every block kind between them: self-attention
 # and MoE (llama4), attention beside the SSD scan (hymba), the decoder
 # with cross-attention and the encoder's own remat (whisper)
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these inputs are small, and the suite's workers
+    share the host's cores (with more, torch's threads mostly wait on each
+    other)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "hymba-1.5b",
                                   "whisper-medium"])
 def test_remat_on_and_off_give_equal_gradients(arch, monkeypatch):
@@ -69,8 +80,15 @@ def test_train_step_factory_contract():
     adamw = O.AdamWConfig(warmup_steps=2, total_steps=4)
     step, jit_for, sh = S.make_train_step(cfg, None, adamw)
     assert set(sh) == {"params", "opt"}
-    assert all(t.device.type == "meta" for t in M.flatten(sh["params"])
-               .values())
+    # one device: the reference's specs on a (1, 1) mesh, each block the
+    # whole leaf
+    from repro_torch.distributed.sharding import local_shape
+    assert all(local_shape(tuple(a.shape), s.spec, s.mesh) == tuple(a.shape)
+               and s.mesh.size == 1 for a, s in zip(
+                   M.flatten(M.abstract_params(cfg)).values(),
+                   M.flatten(sh["params"]).values()))
+    assert M.flatten(sh["params"]).keys() == M.flatten(
+        M.abstract_params(cfg)).keys()
     assert isinstance(sh["opt"], O.AdamWState)
     b_abs = S.make_batch_abstract(cfg, ShapeSpec("t", 16, 4, "train"))
     assert jit_for(b_abs) is step
@@ -80,10 +98,14 @@ def test_train_step_factory_contract():
     with pytest.raises(ValueError, match="3 microbatches"):
         jit_mb(b_abs)
 
-    class FourDevices:
-        size = 4
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        S.make_train_step(cfg, FourDevices(), adamw)
+    # on a mesh of four the shardings are the reference's: the moments'
+    # the parameters', the step replicated (the step itself runs in
+    # tests/test_torch_lm_sharded_train*.py)
+    from repro_torch.launch.mesh import AbstractMesh
+    four = S.make_train_step(cfg, AbstractMesh((2, 2), ("data", "model")),
+                             adamw)[2]
+    assert four["params"]["lm_head"].spec == ("data", "model")
+    assert four["opt"].v is four["params"] and four["opt"].step.spec == ()
     # donate=False leaves the inputs as they were
     params = M.seeded_params(cfg, 0, "cpu")
     before = {k: v.clone() for k, v in M.flatten(params).items()}
