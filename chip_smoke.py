@@ -3395,6 +3395,121 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 (NVIDIA data sheet)
 ADAMW_BYTES_PER_PARAM = 22      # bf16 p r/w, bf16 g r, f32 m and v r/w
 
 
+@contextlib.contextmanager
+def first_step_flops(into: dict):
+    """``launch.train``'s first (warm-up, untimed) step under
+    ``FlopCounterMode``: its matmul flops on the card go to
+    ``into["flops"]``; the later steps run as they are."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.train import steps as S
+    made = S.make_train_step
+
+    def make(*a, **kw):
+        step, jit_for, sh = made(*a, **kw)
+
+        def counted(params, state, batch):
+            if "flops" in into:
+                return step(params, state, batch)
+            with FlopCounterMode(display=False) as fc:
+                out = step(params, state, batch)
+            into["flops"] = float(fc.get_total_flops())
+            return out
+        return counted, lambda b: (jit_for(b), counted)[1], sh
+    S.make_train_step = make
+    try:
+        yield into
+    finally:
+        S.make_train_step = made
+
+
+# The dry run's meta-device counts (``repro_torch.analysis.count``) of the
+# steps this script times, priced on the H100 row of
+# ``analysis/roofline.py``: the one-device train step of the ``train``
+# phase and the decode step of the ``lm`` phase (qwen3-4b), and the
+# counting mesh's rank-0 collectives of the ``train_sharded`` phase's step.
+# ``phase_train`` counts them in its deferred stretch and hands the last to
+# the sharded phase (which counts it itself when run alone).
+LM_DECODE_CACHE = 96            # LM_ARGV's prompt 64 + gen 32
+
+
+def meta_train_sharded(reduced: bool = False) -> dict:
+    """The counting mesh's calls and bytes by kind for rank 0 of the
+    ``train_sharded`` launcher's step (full depth, batch 8, seq 128)."""
+    from repro_torch.analysis import count
+    from repro_torch.configs.base import ShapeSpec
+    args = TRAIN_SHARDED_ARGV
+    shape = ShapeSpec("train", int(args[args.index("--seq") + 1]),
+                      int(args[args.index("--batch") + 1]), "train")
+    mesh = count.CountingMesh(*TRAIN_SHARDED_MESH, rank=0)
+    t0 = time.time()
+    count.count_step(train_sharded_cfg(reduced), shape, mesh,
+                     with_bytes=False)
+    return dict(stats=count.calls_and_bytes(mesh.stats),
+                detail=dict(mesh.detail), seconds=time.time() - t0)
+
+
+def lm_roofline(lm: dict, full: dict, smi: str) -> dict:
+    """qwen3-4b's one-device train step (batch 8, seq 128) and decode step
+    (batch 4, a cache of 96) counted on the meta device and priced on the
+    H100 row (compute and memory terms; the bound is the larger), beside
+    the ``train`` and ``lm`` phases' measured ms; the train step's meta
+    flops must equal its warm-up step's on the card exactly.  Also counts
+    the sharded phase's rank-0 collectives (``out["train_sharded"]``)."""
+    from repro_torch.analysis import count
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    cfg = get_config("qwen3-4b")
+    train_args = dict(zip(TRAIN_ARGV[::2], TRAIN_ARGV[1::2]))
+    B, S = int(train_args["--batch"]), int(train_args["--seq"])
+    steps = dict(
+        train=(ShapeSpec("train", S, B, "train"), {},
+               full["qwen3-4b"]["ms_per_step"]),
+        decode=(ShapeSpec("decode", LM_DECODE_CACHE, 4, "decode"),
+                dict(cache_index=LM_DECODE_CACHE - 1),
+                lm["serve"]["qwen3-4b"]["decode_ms_per_step"]
+                if lm else None))
+    out = {}
+    for name, (shape, kw, ms) in steps.items():
+        t0 = time.time()
+        got = count.count_step(cfg, shape, None, **kw)
+        cell = rl.CellResult(
+            arch=cfg.name, shape=name, mesh="one", chips=1,
+            flops_per_device=got["flops"], bytes_per_device=got["bytes"],
+            wire_bytes_per_device=0.0, collective_detail={},
+            peak_memory_per_device=None, model_flops=0.0,
+            model_flops_basis="-", tokens=0, hw="h100")
+        bound_ms = max(cell.t_compute, cell.t_memory) * 1e3
+        out[name] = dict(flops=got["flops"], bytes=got["bytes"],
+                         t_compute_ms=cell.t_compute * 1e3,
+                         t_memory_ms=cell.t_memory * 1e3,
+                         bound_ms=bound_ms, bottleneck=cell.bottleneck,
+                         measured_ms=ms, seconds=time.time() - t0,
+                         ms_over_bound=None if ms is None else ms / bound_ms)
+        log(f"[roofline] qwen3-4b {name} step, one device ("
+            f"{'batch 8, seq 128' if name == 'train' else 'batch 4, cache 96'}"
+            f"), counted on the meta device: {got['flops']:.4e} flops, "
+            f"{got['bytes']:.4e} op bytes (unfused); H100 row: compute "
+            f"{cell.t_compute * 1e3:.3f} ms, memory {cell.t_memory * 1e3:.3f}"
+            f" ms, bound {bound_ms:.3f} ms ({cell.bottleneck}); measured "
+            + ("not run" if ms is None else
+               f"{ms:.3f} ms a step, {ms / bound_ms:.2f}x the bound")
+            + f"; counted in {out[name]['seconds']:.1f} s; {smi}")
+    card = full["qwen3-4b"]["warmup_flops"]
+    out["train"]["card_flops"] = card
+    if card != out["train"]["flops"]:
+        raise AssertionError(f"roofline: the train step's meta flops "
+                             f"{out['train']['flops']} differ from its "
+                             f"warm-up step's on the card {card}")
+    log(f"[roofline] qwen3-4b train step: FlopCounterMode on the card's "
+        f"warm-up step {card:.6e} flops = the meta count, exactly")
+    out["train_sharded"] = meta_train_sharded()
+    log(f"[roofline] counting mesh, rank 0 of the train_sharded step: "
+        f"{out['train_sharded']['stats']} (counted in "
+        f"{out['train_sharded']['seconds']:.1f} s)")
+    return out
+
+
 def lm_train(arch: str, n_params: int, smi: str) -> dict:
     """``repro_torch.launch.train`` at full width, batch 8, seq 128, 5
     steps (the first warms up): ms a step and tok/s over the last 4, peak
@@ -3415,7 +3530,9 @@ def lm_train(arch: str, n_params: int, smi: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args = train.parse_args(["--arch", arch, *TRAIN_ARGV])
-    res = train.run(args)
+    warmup = {}
+    with first_step_flops(warmup):
+        res = train.run(args)
     peak = torch.cuda.max_memory_allocated()
     cfg, params, state = res["cfg"], res["params"], res["opt_state"]
     leaves = list(M.flatten(params).values())
@@ -3455,7 +3572,7 @@ def lm_train(arch: str, n_params: int, smi: str) -> dict:
         bound_flops_ms=flops_ms, bound_optimizer_ms=opt_ms,
         max_memory_allocated=peak, profiled_wall_ms=wall * 1e3,
         profiled_busy_ms=busy * 1e3, busy_share=busy / wall,
-        launches=launches,
+        launches=launches, warmup_flops=warmup["flops"],
         top_kernels=sorted(((k, n, us) for k, (n, us) in by_kernel.items()),
                            key=lambda r: -r[2])[:8])
     log(f"[train] {arch} full width ({on_card:,} parameters), batch "
@@ -3597,14 +3714,16 @@ def train_resume(smi: str) -> dict:
                 final_line=whole.splitlines()[-1])
 
 
-def phase_train(smi):
+def phase_train(smi, lm=None):
     """The LM scaffold's training path, which launches no hand-written
     kernel (its launch counts must all read 0): qwen3-4b and mamba2-780m at
     full width through ``repro_torch.launch.train``; the ten reduced
     configs' train step on the card against the port on the CPU and the
     JAX package's golden (``jax_train_golden.json``); a resumed run
-    against an uninterrupted one.  The last two go side by side with the
-    deferred reference-plan runs (``deferred_runs``)."""
+    against an uninterrupted one; the meta-device counts and H100 roofline
+    of the measured steps (``lm_roofline``; ``lm``: the ``lm`` phase's
+    result).  The last three go side by side with the deferred
+    reference-plan runs (``deferred_runs``)."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.configs import ARCHS
@@ -3621,6 +3740,7 @@ def phase_train(smi):
     with deferred_runs() as deferred:
         reduced = {a: train_card_vs_cpu(a, gold, smi) for a in sorted(ARCHS)}
         resume = train_resume(smi)
+        roofline = lm_roofline(lm, full, smi)
     launched = {k: v for k, v in K.LAUNCHES.items() if v}
     if launched:
         raise AssertionError(f"train: hand-written kernels launched "
@@ -3629,8 +3749,8 @@ def phase_train(smi):
     log(f"[train] no hand-written kernel launched (all {len(K.LAUNCHES)} "
         f"counts 0); phase {seconds:.1f} s")
     return dict(full=full, reduced=reduced, resume=resume,
-                launches=dict(K.LAUNCHES), deferred=deferred,
-                seconds=seconds)
+                roofline=roofline, launches=dict(K.LAUNCHES),
+                deferred=deferred, seconds=seconds)
 
 
 # The LM scaffold's sharded serving path (``lm_sharded`` phase): qwen3-4b
@@ -4244,16 +4364,20 @@ def train_sharded_rank(job):
     return res
 
 
-def train_sharded_check(outs, ref, smi, spawn_s, reduced=False) -> dict:
+def train_sharded_check(outs, ref, smi, spawn_s, reduced=False,
+                        counted=None) -> dict:
     """Hold every rank's results (``train_sharded_rank``) against the card's
     one device (``ref``): the 2-layer check (each leaf's gathered
     gradient within the sharded golden's ``card_grad``, rebuilt from the
     ranks' blocks' sums of squares; replicas' blocks equal; three losses
     within its ``loss``; learning rates equal; the update's blocks bit for
     bit), the launcher's losses and norms finite, no hand-written kernel
-    on any rank; log what the mesh measured, then raise for every check
-    that failed."""
+    on any rank, rank 0's profiled step's collective calls and bytes by
+    kind equal to the counting mesh's (``counted``, or counted here:
+    ``meta_train_sharded``); log what the mesh measured, then raise for
+    every check that failed."""
     import numpy as np
+    from repro_torch.analysis.count import calls_and_bytes
     from repro_torch.distributed.sharding import axes_of
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.models import model as M
@@ -4317,6 +4441,11 @@ def train_sharded_check(outs, ref, smi, spawn_s, reduced=False) -> dict:
     flops_ms = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
     opt_ms = ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S * 1e3
     stats = pr["stats"]
+    counted = counted or meta_train_sharded(reduced)
+    gloo = calls_and_bytes(stats)
+    if counted["stats"] != gloo:
+        failed.append(f"rank 0's step: the counting mesh's collectives "
+                      f"{counted['stats']} differ from gloo's {gloo}")
     kinds = sorted({k[:-6] for k in stats if k.endswith("_calls")})
     per_step = {k: dict(calls=stats.get(f"{k}_calls", 0),
                         bytes=stats.get(f"{k}_bytes", 0),
@@ -4340,7 +4469,8 @@ def train_sharded_check(outs, ref, smi, spawn_s, reduced=False) -> dict:
         peak_bytes_by_rank=peaks, peak_bytes_sum=sum(peaks),
         param_bytes_by_rank=[r["launcher"]["param_bytes"] for r in outs],
         state_bytes_by_rank=[r["launcher"]["state_bytes"] for r in outs],
-        launches_by_rank=[r["launches"] for r in outs])
+        launches_by_rank=[r["launches"] for r in outs],
+        counted_collectives=counted["stats"])
     log(f"[train-sharded] qwen3-4b full width, 2 layers, {len(outs)} gloo "
         f"ranks ({sorted(set(out['devices']))}), mesh "
         f"{TRAIN_SHARDED_MESH[0]}, batch 8, seq 128: worst gradient leaf "
@@ -4369,6 +4499,10 @@ def train_sharded_check(outs, ref, smi, spawn_s, reduced=False) -> dict:
         f"launches; collectives {per_step}; staged "
         f"{out['step_staged_bytes'] / 1e9:.3f} GB in "
         f"{out['step_staging_ms']:.3f} ms; {smi}")
+    log(f"[train-sharded] the counting mesh's rank-0 calls and bytes by "
+        f"kind (meta device) "
+        + ("equal" if counted["stats"] == gloo else "DIFFER FROM")
+        + f" gloo's for the step: {counted['stats']}")
     if failed:
         raise AssertionError("train_sharded: " + "; ".join(failed))
     return out
@@ -4432,7 +4566,7 @@ def train_sharded_reference(cfg2, dev, ref_path, ref: dict) -> None:
         ref_path.with_suffix(".failed").write_text(repr(e))
 
 
-def phase_train_sharded(smi, device="cuda", reduced=False):
+def phase_train_sharded(smi, device="cuda", reduced=False, counted=None):
     """The LM's sharded train step on 4 gloo ranks sharing the card: the
     one-device port on the card (``train_sharded_reference``: qwen3-4b at
     full width with 2 layers, three train steps, the update from its
@@ -4440,7 +4574,9 @@ def phase_train_sharded(smi, device="cuda", reduced=False):
     ranks start (``train_sharded_rank``), each held against it; no
     hand-written kernel may launch (the reduced configs' sharded train
     step on the card is the ``gpu`` cases').  ``device`` "cpu" and
-    ``reduced`` rehearse it on the host with qwen3-4b's reduced config."""
+    ``reduced`` rehearse it on the host with qwen3-4b's reduced config;
+    ``counted``: the train phase's counting-mesh count of rank 0's step
+    (``meta_train_sharded``)."""
     import threading
     import torch
     from repro_torch import kernels as K
@@ -4473,7 +4609,8 @@ def phase_train_sharded(smi, device="cuda", reduced=False):
         worker.join()
     if "error" in ref:
         raise ref["error"]
-    out = train_sharded_check(outs, ref, smi, time.time() - t0, reduced)
+    out = train_sharded_check(outs, ref, smi, time.time() - t0, reduced,
+                              counted)
     for path in [ref_path] + marks:
         path.unlink(missing_ok=True)
     launched = {k: v for k, v in K.LAUNCHES.items() if v}
@@ -4599,9 +4736,10 @@ def run() -> int:
     paper = timed("paper", phase_paper, dev)
     bench = timed("bench", phase_bench, dev, smi)
     lm = timed("lm", phase_lm, smi)
-    train_ = timed("train", phase_train, smi)
+    train_ = timed("train", phase_train, smi, lm)
     lm_sharded = timed("lm_sharded", phase_lm_sharded, smi)
-    train_sharded = timed("train_sharded", phase_train_sharded, smi)
+    train_sharded = timed("train_sharded", phase_train_sharded, smi, "cuda",
+                          False, train_["roofline"]["train_sharded"])
 
     # name: (source, the TPU kernel it replaces, the run whose launches
     # count: the main path that drives it)

@@ -1,1 +1,2 @@
-from repro_torch.kernels.bitonic_sort.ops import MAX_BLOCK, sort_rows  # noqa: F401
+from repro_torch.kernels.bitonic_sort.ops import (  # noqa: F401
+    MAX_BLOCK, sort1d, sort_batch, sort_rows)

@@ -42,6 +42,17 @@ def sort_rows(keys: torch.Tensor) -> torch.Tensor:
     return _sort_rows_kernel(keys)
 
 
+def sort_batch(keys: torch.Tensor) -> torch.Tensor:
+    """The reference package's name: keys (B, L) int32 -> each row sorted
+    ascending (``sort_rows``)."""
+    return sort_rows(keys)
+
+
+def sort1d(keys: torch.Tensor) -> torch.Tensor:
+    """The reference package's one-row sort: keys (L,) int32 ascending."""
+    return sort_batch(keys.reshape(1, -1))[0]
+
+
 def _sort_rows_kernel(keys: torch.Tensor) -> torch.Tensor:
     """Rows are padded to ``max(128, next_pow2(L))`` lanes in the kernel's
     registers; only the L real lanes are read and written."""

@@ -1,1 +1,1 @@
-from repro_torch.kernels.chain_dp.ops import chain_dp  # noqa: F401
+from repro_torch.kernels.chain_dp.ops import chain_dp, dp_read  # noqa: F401

@@ -33,6 +33,13 @@ def chain_dp(q: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
     return _chain_dp_kernel(q, t, valid, cfg)
 
 
+def dp_read(q: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
+            cfg: MarsConfig):
+    """The reference package's per-read view: (A,) in, (f, diag0) (A,)
+    out, through ``chain_dp`` on a unit batch."""
+    return tuple(x[0] for x in chain_dp(q[None], t[None], valid[None], cfg))
+
+
 def _chain_dp_kernel(q, t, valid, cfg: MarsConfig):
     q, t, valid = q.contiguous(), t.contiguous(), valid.contiguous()
     K.check_cuda("chain_dp", q, t, valid)

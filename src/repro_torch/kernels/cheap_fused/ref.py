@@ -27,3 +27,13 @@ def cheap_fused_rows_ref(xq: torch.Tensor, bucket_start: torch.Tensor,
     cnt = torch.stack([counters[k].to(torch.int32) for k in COUNTER_COLS],
                       dim=1)
     return (t_pos.reshape(R, -1), keep.reshape(R, -1).to(torch.int32), cnt)
+
+
+def cheap_fused_ref(signals: torch.Tensor, index, cfg: MarsConfig):
+    """The reference package's oracle: the cheap phase of raw ``signals``
+    (R, S) f32 through the reference plan's stage bodies
+    (``pipeline.cheap_phase_vmap``): (q_pos, t_pos, hit_valid,
+    counters)."""
+    from repro_torch.core import pipeline, stages
+    plan = stages.resolve_plan(cfg, stages.REFERENCE)
+    return pipeline.cheap_phase_vmap(signals, index, cfg, plan)

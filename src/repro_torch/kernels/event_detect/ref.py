@@ -11,3 +11,11 @@ def event_detect_rows_ref(xq: torch.Tensor, cfg: MarsConfig):
     n_events (R,) int32)."""
     means, n_ev, _ = events.detect_quantized(xq, cfg)
     return means, n_ev
+
+
+def event_detect_ref(signals: torch.Tensor, cfg: MarsConfig):
+    """The reference package's oracle: event detection of raw ``signals``
+    (R, S) f32 in ``cfg``'s mode (``events.detect_events``).  Returns
+    (means (R, E) f32, n_events (R,) int32)."""
+    means, n_ev, _ = events.detect_events(signals, cfg)
+    return means, n_ev

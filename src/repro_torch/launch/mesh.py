@@ -145,7 +145,10 @@ class Mesh(AbstractMesh):
     this rank sent and the host seconds inside the collective call (under
     gloo the whole exchange, waits on peers included; under NCCL the
     enqueue), and under gloo the bytes staged through host memory and the
-    seconds the staging copies took.
+    seconds the staging copies took.  Four ``_send_*`` methods move the
+    bytes; the rest (packing, the message caps, the per-axis loop, the
+    counts) is shared with the dry run's counting mesh
+    (``analysis.count.CountingMesh``), whose transport moves nothing.
     """
 
     def __init__(self, shape: Tuple[int, ...], axes: Tuple[str, ...],
@@ -196,12 +199,40 @@ class Mesh(AbstractMesh):
         return out
 
     @contextlib.contextmanager
-    def _collective(self, kind: str, nbytes: int):
+    def _collective(self, kind: str, nbytes: int, result_bytes: int):
+        """Count one call of ``kind`` sending ``nbytes`` and timing its
+        body; ``result_bytes``, what the call leaves on this rank, is the
+        counting mesh's (``analysis.count.CountingMesh``)."""
         self.stats[f"{kind}_calls"] += 1
         self.stats[f"{kind}_bytes"] += nbytes
         t0 = time.perf_counter()
         yield
         self.stats[f"{kind}_s"] += time.perf_counter() - t0
+
+    # ---------------------------------------------------------- transport
+    # The only code that moves bytes between ranks; the counting mesh
+    # replaces these four and runs everything else as it is.
+    def _send_all_gather(self, parts, wire, axis=None) -> None:
+        dist.all_gather(parts, wire,
+                        group=None if axis is None else self.groups[axis])
+
+    def _send_all_to_all(self, recv, wire, axis: str) -> None:
+        dist.all_to_all_single(recv, wire, group=self.groups[axis])
+
+    def _send_all_reduce(self, wire, op: str, axis=None) -> None:
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        dist.all_reduce(wire, op=red,
+                        group=None if axis is None else self.groups[axis])
+
+    def _send_ring(self, send, recv, axis: str) -> None:
+        n = self.shape[axis]
+        ranks, c = self.group_ranks[axis], self.coords[axis]
+        group = self.groups[axis]
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, ranks[(c + 1) % n], group=group),
+            dist.P2POp(dist.irecv, recv, ranks[(c - 1) % n], group=group)])
+        for r in reqs:
+            r.wait()
 
     # -------------------------------------------------------- collectives
     def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
@@ -209,8 +240,9 @@ class Mesh(AbstractMesh):
         order, on every rank."""
         wire = self._to_wire(x)
         parts = [torch.empty_like(wire) for _ in range(self.size)]
-        with self._collective("all_gather", x.nbytes):
-            dist.all_gather(parts, wire)
+        with self._collective("all_gather", x.nbytes,
+                              self.size * x.nbytes):
+            self._send_all_gather(parts, wire)
         return self._from_wire(torch.cat(parts))
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -218,8 +250,8 @@ class Mesh(AbstractMesh):
         wire = self._to_wire(x)
         if wire is x:
             wire = x.clone()
-        with self._collective("all_reduce", x.nbytes):
-            dist.all_reduce(wire, op=dist.ReduceOp.SUM)
+        with self._collective("all_reduce", x.nbytes, x.nbytes):
+            self._send_all_reduce(wire, "sum")
         return self._from_wire(wire)
 
     def ring_shift(self, tensors: Sequence[torch.Tensor],
@@ -233,16 +265,8 @@ class Mesh(AbstractMesh):
         buf, metas = _pack(tensors)
         send = self._to_wire(buf)
         recv = torch.empty_like(send)
-        ranks, c = self.group_ranks[axis], self.coords[axis]
-        group = self.groups[axis]
-        with self._collective("ring", buf.nbytes):
-            reqs = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, send, ranks[(c + 1) % n],
-                           group=group),
-                dist.P2POp(dist.irecv, recv, ranks[(c - 1) % n],
-                           group=group)])
-            for r in reqs:
-                r.wait()
+        with self._collective("ring", buf.nbytes, buf.nbytes):
+            self._send_ring(send, recv, axis)
         return _unpack(self._from_wire(recv), metas)
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -257,8 +281,8 @@ class Mesh(AbstractMesh):
             return x
         wire = self._to_wire(x)
         out = torch.empty_like(wire)
-        with self._collective("all_to_all", x.nbytes):
-            dist.all_to_all_single(out, wire, group=self.groups[axis])
+        with self._collective("all_to_all", x.nbytes, x.nbytes):
+            self._send_all_to_all(out, wire, axis)
         return self._from_wire(out)
 
 
@@ -287,10 +311,11 @@ class Mesh(AbstractMesh):
             # staged parts land in pinned memory and go to the card one by
             # one: no host-side concatenation of the whole
             parts = [torch.empty(wire.shape, dtype=wire.dtype,
-                                 pin_memory=self._stage)
+                                 device=wire.device, pin_memory=self._stage)
                      for _ in range(n)]
-            with self._collective("all_gather", buf.nbytes):
-                dist.all_gather(parts, wire, group=self.groups[a])
+            with self._collective("all_gather", buf.nbytes,
+                                  n * buf.nbytes):
+                self._send_all_gather(parts, wire, a)
             per_rank = [_unpack(self._from_wire(p), metas) for p in parts]
             tensors = [torch.cat([r[i] for r in per_rank], dim=d)
                        for i, d in enumerate(dims)]
@@ -350,8 +375,8 @@ class Mesh(AbstractMesh):
             wire = self._to_wire(buf)
             del buf
             recv = torch.empty_like(wire)
-            with self._collective("reduce_scatter", nbytes):
-                dist.all_to_all_single(recv, wire, group=self.groups[a])
+            with self._collective("reduce_scatter", nbytes, nbytes // n):
+                self._send_all_to_all(recv, wire, a)
             del wire
             parts = [_unpack(p, metas)
                      for p in self._from_wire(recv).chunk(n)]
@@ -371,13 +396,14 @@ class Mesh(AbstractMesh):
         """The elementwise sum (or, ``op='max'``, maximum) of ``x`` over
         the ranks of ``axes`` (a name or a tuple: one call an axis), in
         ``x``'s dtype."""
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce: op {op!r}; use 'sum' or 'max'")
         for a in self._live_axes(axes):
             wire = self._to_wire(x)
             if wire is x:
                 wire = x.clone()
-            with self._collective("all_reduce", x.nbytes):
-                dist.all_reduce(wire, op=red, group=self.groups[a])
+            with self._collective("all_reduce", x.nbytes, x.nbytes):
+                self._send_all_reduce(wire, op, a)
             x = self._from_wire(wire)
         return x
 

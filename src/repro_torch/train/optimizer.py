@@ -260,7 +260,10 @@ def _fused(device: torch.device) -> bool:
     """Whether ``torch.addcmul`` computes one fused multiply-add on
     ``device``: on inputs whose unfused result is 0 (c = -round(a*b)) a
     fused one returns the product's rounding error.  Decided once per
-    device."""
+    device; on the meta device (a counted step: ``analysis.count``) the
+    fused route, without a probe."""
+    if device.type == "meta":
+        return True
     if device not in _FUSED:
         g = torch.Generator().manual_seed(0)
         a = torch.randn(4096, generator=g)
@@ -288,8 +291,11 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     every device (this host's CPU kernel is off by one unit in the last
     place on some inputs), so where a check of 65536 values against the
     f64 root finds it off, the root is taken in f64 and rounded (exact:
-    f64 carries more than twice f32's bits).  Decided once per device."""
+    f64 carries more than twice f32's bits).  Decided once per device;
+    on the meta device ``torch.sqrt``, without a probe."""
     dev = x.device
+    if dev.type == "meta":
+        return torch.sqrt(x)
     if dev not in _SQRT:
         g = torch.Generator().manual_seed(0)
         t = torch.rand(65536, generator=g) * 2.0 ** torch.randint(
@@ -330,7 +336,8 @@ def update(cfg: AdamWConfig, params, grads, state: AdamWState,
     clips it.  With ``shardings`` every tree holds the rank's blocks
     (ZeRO-3), and the gradient norm is the whole tree's."""
     gnorm = global_norm(grads, shardings)
-    step = int(state.step) + 1
+    # a meta step (a counted one) has no value: the schedule's first
+    step = (0 if state.step.is_meta else int(state.step)) + 1
     lr = _schedule_f32(cfg, step)
     dev = state.step.device
     f = lambda x: torch.tensor(np.float32(x), device=dev)

@@ -34,7 +34,8 @@ mesh, serving the ten reduced configs against the port on the card's one
 device and the JAX package's sharded golden
 (``src/repro_torch/models/jax_lm_sharded_golden.json``), and
 ``psum_int8`` over both axes bit for bit against the same algorithm on
-the host.
+the host; and the dry run's meta-device flop count of each reduced
+config's train step against the card's count of the same step, exact.
 
 Marked ``gpu``; every test decides inside itself whether a card exists and
 skips without one:
@@ -1558,3 +1559,30 @@ def test_lm_sharded_train_launches_no_hand_kernel(lm_sharded_train):
     for r in ranks:
         assert not any(r["launches"].values()), r["launches"]
     assert not any(launches.values()), launches
+
+
+@pytest.mark.parametrize("arch", sorted(LM_ARCHS))
+def test_lm_meta_train_flops_equal_the_card(arch):
+    """The dry run's counter: a reduced config's train step counted on the
+    meta device (``analysis.count.count_step``) equals ``FlopCounterMode``
+    around the same step on the card, exactly."""
+    _card()
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis import count
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import model as M
+    from repro_torch.train import golden as TG
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+    gold = TG.load()
+    cfg = get_config(arch).reduced()
+    params = M.seeded_params(cfg, gold["weights_seed"], "cuda")
+    batch = S.device_batch(TG.batches(cfg, gold)[0], "cuda")
+    step, _, _ = S.make_train_step(cfg, None, O.AdamWConfig())
+    with FlopCounterMode(display=False) as fc:
+        step(params, O.init_state(params), batch)
+    B, T = batch["tokens"].shape
+    meta = count.count_step(cfg, ShapeSpec("train", T, B, "train"), None,
+                            with_bytes=False)
+    assert meta["flops"] == fc.get_total_flops() > 0

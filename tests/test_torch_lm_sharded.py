@@ -15,7 +15,11 @@ its blocks and computing its rows:
   device's), rtol = atol = 5e-2 (the JAX package's own test's bound; the
   int8 cache within 0.08);
 - the launcher's body on the mesh: rank 0 prints the reference launcher's
-  lines, every rank samples the same tokens.
+  lines, every rank samples the same tokens;
+- each config's prefill and decode step's collective calls and bytes by
+  kind on each rank (``Mesh.stats``) against the counting mesh's count of
+  the same step for that rank on the meta device (``analysis.count``):
+  exact.
 
 (``tests/test_torch_lm_collectives.py`` regenerates the golden's
 h2o-danube-1.8b case on a (4, 2) mesh.)  Run as a script to print the
@@ -95,9 +99,44 @@ def _rank() -> dict:
     from repro_torch.train import golden as TG
     train = TG.train_run(TC.get_config("qwen3-4b").reduced(), TG.load(),
                          "cpu", mesh, steps=1)
+    stats = dict(mesh.stats)
     return dict(rank=mesh.rank, outs=outs, tokens=res["tokens"],
-                printed=printed.getvalue(), stats=dict(mesh.stats),
-                train=train)
+                printed=printed.getvalue(), stats=stats, train=train,
+                collectives=_collectives(mesh))
+
+
+def _collectives(mesh) -> dict:
+    """{arch: {step: (Mesh.stats' calls and bytes, the counting mesh's)}}
+    of each reduced config's prefill and decode step on this rank."""
+    from repro_torch.analysis import count as COUNT
+    from repro_torch.configs.base import ShapeSpec
+    out = {}
+    for arch in ARCHS:
+        cfg = TC.get_config(arch).reduced()
+        params = TM.seeded_params(cfg, GOLD["weights_seed"], "cpu",
+                                  mesh=mesh)
+        tokens, ctx = G.sharded_inputs(cfg, GOLD)
+        B, S = tokens.shape[0], tokens.shape[1] - 1
+        cache = TM.init_cache(cfg, B, GOLD["max_len"], device="cpu",
+                              mesh=mesh)
+        got = {}
+        for kind in ("prefill", "decode"):
+            mesh.stats.clear()
+            if kind == "prefill":
+                _, cache = TM.prefill(params, tokens[:, :S], cfg,
+                                      cache=cache, ctx=ctx, mesh=mesh)
+            else:
+                TM.decode_step(params, tokens[:, S:], cfg, cache=cache,
+                               cache_index=S, ctx=ctx, mesh=mesh)
+            counted = COUNT.CountingMesh((2, 2), ("data", "model"),
+                                         rank=mesh.rank)
+            COUNT.count_step(cfg, ShapeSpec(kind, S, B, kind), counted,
+                             with_bytes=False, max_len=GOLD["max_len"],
+                             cache_index=S)
+            got[kind] = (COUNT.calls_and_bytes(mesh.stats),
+                         COUNT.calls_and_bytes(counted.stats))
+        out[arch] = got
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -199,6 +238,14 @@ def test_meshes_that_cannot_be_honoured_raise(ranks):
         MESH._check_backend(torch.device("cpu"), "nccl", 4)
     with pytest.raises(ValueError, match="one card per rank"):
         MESH.run_ranks(print, 4, backend="nccl")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_counting_mesh_equals_gloo_stats_prefill_decode(ranks, arch):
+    for r in ranks:
+        for kind, (gloo, counted) in r["collectives"][arch].items():
+            assert gloo["all_gather_calls"] > 0, (arch, kind)
+            assert counted == gloo, (arch, kind, r["rank"], counted, gloo)
 
 
 if __name__ == "__main__":

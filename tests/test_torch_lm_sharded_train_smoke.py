@@ -2,9 +2,9 @@
 qwen3-4b's reduced config (4 gloo ranks; the card runs it at full width):
 the one device's reference beside the ranks, the 2-layer check (the
 update's blocks by digest, the gradient rebuilt from the ranks' blocks'
-sums of squares), the launcher with its last step profiled on rank 0, and
-what the phase records, so that the script's own code has run before a
-call to the card."""
+sums of squares), the launcher with its last step profiled on rank 0, its
+collectives against the counting mesh's, and what the phase records, so
+that the script's own code has run before a call to the card."""
 import pathlib
 import sys
 
@@ -38,5 +38,9 @@ def test_train_sharded_phase_rehearses_on_the_cpu():
     assert set(out["step_collectives"]) == {"all_gather", "all_reduce",
                                             "reduce_scatter"}
     assert all(v["calls"] > 0 for v in out["step_collectives"].values())
+    # the counting mesh's rank-0 count of the step equals gloo's
+    assert out["counted_collectives"] == {
+        f"{k}_{f}": v[f] for k, v in out["step_collectives"].items()
+        for f in ("calls", "bytes")}
     assert out["ranks"] == 4 and len(out["step_times_s"]) == 3
     assert not any(v for r in out["rank_launches"] for v in r.values())

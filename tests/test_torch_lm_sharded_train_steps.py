@@ -15,6 +15,9 @@ reduced qwen3-4b:
 - a sharded save of (params, opt_state) sha256-equal to the one-device
   save, restored onto the mesh and onto one device, read by the JAX
   package's ``ckpt.restore``; and a JAX save restored onto the mesh;
+- one train step's collective calls and bytes by kind on each rank
+  (``Mesh.stats``) against the counting mesh's count of the same step for
+  that rank on the meta device (``analysis.count``): exact;
 - the JAX package's own sharded training test on the port: (2, 2, 2),
   batch 4, seq 32, five steps; the loss falls, each step within 1e-2 of
   the JAX package's run (``jax_train_sharded_golden.json``'s ``oracle``)
@@ -31,6 +34,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs as TC  # noqa: E402
+from repro_torch.analysis import count as COUNT  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.data.tokens import TokenStream  # noqa: E402
 from repro_torch.distributed import sharding as SH  # noqa: E402
@@ -137,6 +141,19 @@ def _rank(job) -> dict:
     out["jax_restore_bad"] = [
         k for k, v in _cpu(jp).items()
         if not torch.equal(v, _cpu(want)[k])]
+    # one train step's collectives, and the counting mesh's count of the
+    # same step for this rank on the meta device
+    batch = TS.device_batch(G.batches(cfg, gold)[0], "cpu")
+    step, _, _ = TS.make_train_step(cfg, mesh, _adamw(gold))
+    p = TM.tree_map(torch.clone, params)
+    mesh.stats.clear()
+    step(p, TO.init_state(p), batch)
+    counted = COUNT.CountingMesh((2, 2), AXES, rank=mesh.rank)
+    B, S = batch["tokens"].shape
+    COUNT.count_step(cfg, ShapeSpec("t", S, B, "train"), counted,
+                     with_bytes=False)
+    out["collectives"] = (COUNT.calls_and_bytes(mesh.stats),
+                          COUNT.calls_and_bytes(counted.stats))
     # microbatches 2 on the mesh
     step_mb, _, _ = TS.make_train_step(cfg, mesh, _adamw(gold), donate=False,
                                        microbatches=2)
@@ -419,3 +436,11 @@ def test_jax_sharded_training_oracle_on_the_port(oracle):
     assert all(r == got for r in ranks)
     for a, b, c in zip(got, want, one):
         assert abs(a - b) <= tol and abs(a - c) <= tol, (got, want, one)
+
+
+def test_counting_mesh_equals_gloo_stats_train_step(ranks):
+    for r in ranks[0]:
+        gloo, counted = r["collectives"]
+        assert gloo["all_gather_calls"] > 0 and gloo["reduce_scatter_calls"] > 0
+        assert counted == gloo, (r["rank"], counted, gloo)
+
