@@ -78,9 +78,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                each route of phase 4 gave them, and on inputs built to
                break them (the sort's edge rows at 512 x 4096 and 512 x
                8192, the DP's tie-heavy anchors at 512 x 512); the DP's
-               band kernel at B = 16 and 64 on D5's anchors, tie-heavy
-               anchors and anchors whose tying predecessors share a lane
-               (and at B = 128 and 300 on the last two), and rows of 16384
+               band kernel at B = 1, 16, 31, 33, 64, 65, 128 and 300 on
+               D5's anchors, tie-heavy anchors and anchors whose tying
+               predecessors share a lane (each timed B beside the B = 32
+               kernel's repeats; B = 31 and 65 untimed), and at B = 64
+               and 300 on the band's far edge and on ties between two
+               older slots of one lane (untimed), and rows of 16384
                keys through the sort wrapper's counted torch.sort route.
                Tolerance: exact.
                Times from warmed CUDA events; ``bound_ms`` is the least time
@@ -389,6 +392,19 @@ def sort_bound(N: int, L: int):
 
 def dp_bound(N: int, A: int, band: int):
     return bound(N * A * (4 + 4 + 1 + 4 + 4), 15 * N * A * band)
+
+
+# The DP's anchor-to-anchor chain: 8 dependent instructions, about 35
+# cycles a step (csrc/chain_dp.cu's header)
+CHAIN_CYCLES = 35
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
 
 
 def event_detect_bound(R: int, S: int, c):
@@ -876,38 +892,69 @@ def phase_kernels(cfg, reads, index, inputs, main_routes, dev):
         f"{[round(x, 5) for x in b32]} ms")
     # the band kernel (any chain_band but 32): D5's full-width anchors,
     # tie-heavy anchors, and anchors whose tying predecessors lie 32 apart
-    # (one lane of the band kernel decides the tie); B = 16 and 64 keep the
-    # band in registers (1 and 2 slots a lane), B = 128 and 300 in the
-    # scratch row
-    from repro_torch.kernels.fixtures import lane_tie_anchors
-    lane = (torch.from_numpy(x).to(dev) for x in lane_tie_anchors(R, A))
-    cases = dict(full=d5, ties=(sq, st, sv), lane_ties=tuple(lane))
-    for B in (16, 64, 128, 300):
+    # (a slot of the band kernel's R0 and its chain; two slots of one lane
+    # at B > 33).  B <= 33 keeps R0 alone, B = 64 two register sets beside
+    # it, B = 128 four, B = 300 ten; B = 31 and 65 lie one slot either side
+    # of a set's edge, and at B = 64 and 300 the band's far edge and ties
+    # between two older slots of one lane join (tests/test_torch_gpu.py
+    # adds B = 96 and the sets past R16).  A band's inputs are held against
+    # the plain version as one batch of rows (one launch, one plain run:
+    # the plain version, 0.5 s a call, is paced by its A steps, not its
+    # rows).  Each timed B is read beside the shipped kernel's repeats
+    # above, and in the log beside the chain floor: A steps of the
+    # anchor-to-anchor chain's CHAIN_CYCLES (read off the SASS, not
+    # measured here) at the card's highest SM clock.  The plain version is
+    # timed at B = 16 and 64 alone
+    from repro_torch.kernels.fixtures import (band_edge_anchors,
+                                              lane_tie_anchors)
+
+    def on_card(arrays):
+        return tuple(torch.from_numpy(x).to(dev) for x in arrays)
+    cases = dict(full=d5, ties=(sq, st, sv),
+                 lane_ties=on_card(lane_tie_anchors(R, A)))
+    lag = on_card(lane_tie_anchors(R, A, lag=3))
+    floor_ms = A * CHAIN_CYCLES / (sm_clock_mhz() * 1e3)
+    for B in (1, 16, 31, 33, 64, 65, 128, 300):
         cb = cfg.replace(chain_band=B)
-        for label, (bq, bt, bv) in cases.items():
-            if B > 64 and label == "full":
-                continue
-            K.reset_launches()
-            g = dp_ops.chain_dp(bq, bt, bv, cb)
-            want = chain_dp_ref(bq, bt, bv, cb)
-            torch.cuda.synchronize()
-            check_launches(f"chain_dp B={B} {label}", K.LAUNCHES,
-                           ("chain_dp",))
-            err = max(assert_equal(f"chain_dp B={B} {label} {n}", a, b)
-                      for n, a, b in zip(("f", "diag0"), g, want))
-            k_ms = time_ms(lambda: dp_ops.chain_dp(bq, bt, bv, cb), 20)
-            p_ms = (time_ms(lambda: chain_dp_ref(bq, bt, bv, cb), 1)
-                    if label == "full" else None)
+        batch = dict(cases)
+        if B in (64, 300):
+            batch["band edge"] = on_card(band_edge_anchors(R, A, B))
+            batch["lane ties lag 3"] = lag
+        bq, bt, bv = (torch.cat(x) for x in zip(*batch.values()))
+        K.reset_launches()
+        g = dp_ops.chain_dp(bq, bt, bv, cb)
+        want = chain_dp_ref(bq, bt, bv, cb)
+        torch.cuda.synchronize()
+        check_launches(f"chain_dp B={B}", K.LAUNCHES, ("chain_dp",))
+        errs, row = {}, 0
+        for label, (xq, _, _) in batch.items():
+            rows = slice(row, row + xq.shape[0])
+            row = rows.stop
+            errs[label] = max(
+                assert_equal(f"chain_dp B={B} {label} {n}", a[rows], b[rows])
+                for n, a, b in zip(("f", "diag0"), g, want))
+        untimed = [x for x in batch if B in (31, 65) or x not in cases]
+        if untimed:
+            log(f"[kernels] chain_dp B={B} {', '.join(untimed)} ({R}, {A}) "
+                "equal (untimed)")
+        if B in (31, 65):
+            continue
+        for label, (xq, xt, xv) in cases.items():
+            k_ms = time_ms(lambda: dp_ops.chain_dp(xq, xt, xv, cb), 20)
+            p_ms = (time_ms(lambda: chain_dp_ref(xq, xt, xv, cb), 1)
+                    if label == "full" and B in (16, 64) else None)
             b_ms, b_by = dp_bound(R, A, B)
             dp_shapes.append(dict(
                 route=f"B={B} {label} {R}x{A}", on_main_path=False,
-                shape=f"({R}, {A}), B={B}", max_abs_err=err, ms=k_ms,
-                plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                shape=f"({R}, {A}), B={B}", max_abs_err=errs[label],
+                ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by))
             log(f"[kernels] chain_dp B={B} {label} ({R}, {A}) equal; "
-                f"kernel {k_ms:.4f} ms"
+                f"kernel {k_ms:.4f} ms ({k_ms / np.mean(b32):.2f}x the "
+                f"B=32 kernel's {np.mean(b32):.4f})"
                 + (f", plain {p_ms:.3f} ms" if p_ms is not None else "")
-                + f", bound {b_ms:.5f} ms ({b_by})")
+                + f", bound {b_ms:.5f} ms ({b_by}), chain floor "
+                f"{floor_ms:.5f} ms")
     # rows past one kernel block: the sort wrapper's counted torch.sort
     # route, as the reference's sort_batch takes jnp.sort there.  Not a
     # hand kernel, so it stays out of the kernels line; it is held against

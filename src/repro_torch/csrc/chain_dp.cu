@@ -219,133 +219,308 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 }
 
 // ---------------------------------------------------------------------------
-// Any band B >= 1 (chain_band != 32).
+// Any band B >= 1 (chain_band != 32): chain_dp_band_kernel<KR, kFar, kWide>.
 //
-// One warp per read; band slot s (the newest anchor j with j % B == s) lives
-// in lane s % 32, at register (or scratch entry) s / 32: SLOTS = ceil(B / 32)
-// slots a lane, the lanes past B masked off when B < 32.  Up to 2 slots a
-// lane the band stays in registers (B <= 64); a wider band lives in a
-// global scratch row of B int4 entries per read, each entry read and written
-// by the one lane that owns it, so no lane ever sees another's writes.
-// More slots would not stay in registers: ptxas puts a band of 4 or 8
-// slots a lane in a local-memory stack frame, the scratch row's memory
-// class.
+// The shipped kernel's split at any band.  One warp per read.  R0 is the
+// shipped kernel's register set: lane l holds the newest anchor j with
+// j % 32 == l, written in place at step j.  R1..R_KR hold what R0 held 1..KR
+// blocks of 32 anchors back: at each block's end R_k <- R_{k-1}, R1 <- R0
+// (three moves a set every 32 steps; nothing is indexed by a runtime B).
+// In a lane R0 has not overwritten yet in this block, R1 repeats R0's
+// slot at the same distance back, which is harmless.  At step i = base + s,
+// set k > 0 holds anchor i - (32k - y) in lane l (y = l - s), R0 anchor
+// i - (x0 + 1) (x0 = ~y & 31): a slot's distance back is an immediate less
+// y, and the slot is in the band when that is at most B - 1, one compare
+// (yb = y + B - 1 >= 32k), needed on the last two sets alone
+// (B >= 32 KR - 30 puts R1..R_{KR-2} wholly inside) and on R0.  A band
+// takes KR = ceil((B - 1) / 32) sets, none up to B = 33.
 //
-// Step i is the reference's step as written: every lane forms the
-// candidates of its slots, keeps the best by (score, then smallest age rank
-// k = (s - i) mod B, 0 the oldest), and the warp reduces that pair: a
-// __reduce_max_sync of the order-preserving score image, a __reduce_min_sync
-// of the age ranks that reach it, and one shuffle of diag0 from the lane
-// owning the winning slot (s = (i + k) mod B).  So the tie rule is the
-// reference's, first (oldest) index on equal score, across slots and lanes.
-// The same candidate() (two __fmaf_rn) and __fadd_rn as the B = 32 kernel.
-// The wrapper passes B = min(chain_band, A): with B >= A every earlier
-// anchor of the read is in the band, as it is with any wider band, and the
-// extra slots are sentinels whose candidate is NEG.
+// Step i's chain is chain_dp_kernel's: the newest anchor's candidate
+// merged by a strict > into the older slots' best, which step i - 1
+// reduced beside its own chain.  Each lane scans its slots in reach, oldest
+// set first, keeping the first best key and its distance back; one
+// __reduce_max_sync takes the best key, a second the farthest distance
+// among the lanes reaching it (the reference's oldest-first rule).  The
+// winner's diag0 comes from a ring in shared memory holding every recent
+// anchor's diag0 (d_ring(KR) entries a warp, each written by all lanes
+// alike), so no set carries diag0; with R0 alone, the winner's lane
+// shuffles it, as in the shipped kernel.
 //
-// What bounds it: as the B = 32 kernel, the anchor-to-anchor chain; here
-// the whole step is on it (no look-ahead split), SLOTS candidates, two
-// REDUX and four shuffles a step.  A simple kernel first (PERF.md).
-template <int SLOTS>   // > 0: slots a lane in registers; 0: band in scratch
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// A slot costs about 15 instructions, chosen for the pipes: the H100's
+// integer ALU accepts a warp instruction every other cycle, the FMA pipe
+// every cycle.  In reach is dt - 1 and dq - 1 below max_gap as unsigned
+// (two ISETP); gap and skip come from the floats whose bits are
+// 2^23 + dt - 1 and 2^23 + dq - 1 (VIADD, then FADD, and FMNMX + FADD),
+// exact below 2^23, in place of two quarter-rate I2F; f is kept as -inf
+// where it is <= NEG/2, so no slot tests it; the slot is taken under the
+// reach predicate (ISETP, two SEL), with no select of NEG.  The key is the
+// candidate's bits: positive floats order as their bits do, and only a
+// positive best counts (fi = anchor_score + max(best, 0); diag0 is taken
+// only when best > 0), so NEG, -inf and slots out of reach need no order
+// among themselves.  max_gap >= 2^23 takes the instance that converts with
+// I2F (kWide: KR = 16, every set tested against the band).
+//
+// Past B = 513 the sets beyond R16 (kFar) are read back each step from
+// where the lane itself wrote them: set k > 16 holds anchor
+// base + lane - 32 k, whose f and diag0 this lane stored to the outputs
+// k blocks ago and whose t and q are inputs.  Neither a scratch row nor a
+// band cap: any B up to A runs.  Measured while this design was chosen
+// (PERF.md): at B = 64, 96, 128, 300 and 512 every split of the sets
+// between registers and a shared-memory ring was slower than all
+// registers, so every band up to 513 keeps its sets in registers.
+//
+// Resources (ptxas, sm_90a; scripts/bench_chain_band.py): no instance
+// spills or keeps a stack; 48 registers at KR = 0, 70 at 2, 80 at 4, 90
+// at 10, 109 at 16.  The anchor loop's SASS: 75.5 instructions a step at
+// KR = 0, 112 at 2, 147 at 4, 226 at 10, 314 at 16, 14.7 a set; 3
+// shuffles and 2 REDUX a step, and no I2F but the chain's two.
+//
+// What bounds it: as the shipped kernel, one warp's instruction stream on
+// each scheduler.  On 512 x 512 anchors B <= 33 takes 0.0365 ms, under
+// the shipped kernel's 0.0395; B = 300 takes 0.0835 ms, 323 cycles a step
+// at 1980 MHz for 226 instructions, where the chain's 35 cycles a step
+// alone would take 0.0091 ms (PERF.md).
+constexpr int kMaxRegSets = 16;          // sets R1..R16 beside R0
+constexpr int kWideGap = 1 << 23;        // the magic conversion's range
+constexpr float kMagic = 8388608.0f;     // 2^23, bits 0x4B000000
+
+// entries of the warp's diag0 ring: a power of two covering R0..R_KR
+__host__ __device__ constexpr int d_ring(int kr) {
+  int n = 32;
+  while (n < 32 * (kr + 1)) n *= 2;
+  return n;
+}
+
+// the int32 difference a - b, wrapping as the reference's int32 does
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+
+// one block an SM is all a launch of 512 reads needs: ptxas then schedules
+// for registers, not occupancy
+template <int KR, bool kFar, bool kWide>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
     chain_dp_band_kernel(const int* __restrict__ q, const int* __restrict__ t,
                          const unsigned char* __restrict__ valid,
                          float* __restrict__ f_out, int* __restrict__ d_out,
-                         int rows, int A, int B, Costs c,
-                         int4* __restrict__ scratch) {
-  constexpr int kRegs = SLOTS > 0 ? SLOTS : 1;
+                         int rows, int A, int B, int H, Costs c) {
+  constexpr int kD = d_ring(KR);
+  __shared__ int band_smem[kWarpsPerBlock * kD];
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
   if (row >= rows) return;               // the whole warp leaves together
   const size_t off = static_cast<size_t>(row) * A;
-  float bf[kRegs];
-  int bd[kRegs], bt[kRegs], bq[kRegs];
-  int4* band = nullptr;
-  if constexpr (SLOTS > 0) {
+  const unsigned mg = c.max_gap > 0 ? static_cast<unsigned>(c.max_gap) : 0u;
+  const float inf = __int_as_float(0x7f800000);
+  // diag0 of anchor a at dring[a % kD], written by every lane alike
+  int* dring = band_smem + warp * kD;
+  // R0 (f0, t0, q0) and R1..R_KR (rf, rt, rq; index 0 unused): f is -inf
+  // where the anchor's f <= NEG/2, so a slot needs no test of it.  Sets
+  // R_{KR+1}..R_{KR+H} are read back from the outputs and inputs.
+  float f0 = -inf, rf[KR + 1];
+  int t0 = kSent, q0 = kSent, rt[KR + 1], rq[KR + 1];
 #pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      bf[j] = kNeg;
-      bd[j] = 0;
-      bt[j] = kSent;
-      bq[j] = kSent;
-    }
-  } else {
-    band = scratch + static_cast<size_t>(row) * B;
-    for (int sl = lane; sl < B; sl += 32)
-      band[sl] = make_int4(__float_as_int(kNeg), 0, kSent, kSent);
+  for (int k = 1; k <= KR; ++k) {
+    rf[k] = -inf;
+    rt[k] = kSent;
+    rq[k] = kSent;
   }
+  int cur_t = 0, cur_q = 0, cur_v = 0;
+  if (lane < A) {
+    cur_t = __ldg(t + off + lane);
+    cur_q = __ldg(q + off + lane);
+    cur_v = __ldg(valid + off + lane);
+  }
+  // as chain_dp_kernel: the newest anchor's entry, the older slots' best
+  // (0, not NEG, when none is positive: only a positive best counts), and
+  // the coordinates of anchors i and i+1
+  float new_f = kNeg, older_f = 0.0f;
+  int new_d = 0, new_t = kSent, new_q = kSent, older_d = 0;
+  int t_i = __shfl_sync(kFull, cur_t, 0), q_i = __shfl_sync(kFull, cur_q, 0),
+      v_i = __shfl_sync(kFull, cur_v, 0);
+  int t_n = __shfl_sync(kFull, cur_t, 1), q_n = __shfl_sync(kFull, cur_q, 1),
+      v_n = __shfl_sync(kFull, cur_v, 1);
+  float out_f = kNeg;
+  int out_d = 0;
   for (int base = 0; base < A; base += 32) {
     const int n = min(32, A - base);
-    int cur_t = 0, cur_q = 0, cur_v = 0;
-    if (lane < n) {
-      cur_t = __ldg(t + off + base + lane);
-      cur_q = __ldg(q + off + base + lane);
-      cur_v = __ldg(valid + off + base + lane);
+    int nxt_t = 0, nxt_q = 0, nxt_v = 0;
+    if (base + 32 + lane < A) {
+      nxt_t = __ldg(t + off + base + 32 + lane);
+      nxt_q = __ldg(q + off + base + 32 + lane);
+      nxt_v = __ldg(valid + off + base + 32 + lane);
     }
-    float out_f = kNeg;
-    int out_d = 0;
+#pragma unroll (KR <= 4 ? 4 : 2)
     for (int s = 0; s < n; ++s) {
-      const int i = base + s;
-      const int ti = __shfl_sync(kFull, cur_t, s);
-      const int qi = __shfl_sync(kFull, cur_q, s);
-      const int vi = __shfl_sync(kFull, cur_v, s);
-      const int r = i % B;               // anchor i's slot, the oldest's
-      // this lane's best slot: highest score image, then smallest age rank
-      int lk = INT_MIN, la = B, ld = 0;
-      auto consider = [&](float f, int d, int st, int sq, int sl) {
-        const int key = order_key(candidate(f, ti - st, qi - sq, c));
-        const int age = sl >= r ? sl - r : sl - r + B;
-        if (key > lk || (key == lk && age < la)) {
+      // Off the chain: the older slots of step i + 1 (i = base + s), those
+      // 1 .. B-1 anchors back from i, before anchor i lands in R0.  Set
+      // k > 0 holds anchor i - (32k - y) in this lane (y = lane - s), R0
+      // anchor i - (x0 + 1), x0 = ~y & 31.  Each lane keeps the first best
+      // key among its in-band slots, oldest set first, with its distance
+      // back (as lb - y); the warp takes the best key and the farthest
+      // slot reaching it, whose diag0 the ring holds.
+      const int fetch = s + 2;                  // anchor i+2, for step i+1
+      const bool here = fetch < 32;
+      const int tf = __shfl_sync(kFull, here ? cur_t : nxt_t, fetch & 31);
+      const int qf = __shfl_sync(kFull, here ? cur_q : nxt_q, fetch & 31);
+      const int vf = __shfl_sync(kFull, here ? cur_v : nxt_v, fetch & 31);
+      const int y = lane - s;
+      const int yb = y + B - 1;                 // in band: 32k - y <= B - 1
+      const int tn1 = wrap_sub(t_n, 1), qn1 = wrap_sub(q_n, 1);
+      int lk = INT_MIN, lb = 0, ld = 0;
+      // a slot at (dt, dq) = (t_n - st, q_n - sq): ok is dt, dq in
+      // [1, max_gap]; gap and skip are exact, as the reference's I2F.
+      // The lane keeps its first best key among its slots in reach, oldest
+      // set first, the slot's distance back (as b - y) and, for a set read
+      // back or for R0 alone, its diag0
+      auto consider = [&](float f, int st, int sq, bool in_band, int b,
+                          bool keep_d, int d) {
+        const int dt1 = wrap_sub(tn1, st), dq1 = wrap_sub(qn1, sq);
+        const bool ok = static_cast<unsigned>(dt1) < mg &&
+                        static_cast<unsigned>(dq1) < mg && in_band;
+        float gap, skip;
+        if constexpr (kWide) {
+          gap = __int2float_rn(abs(wrap_sub(dt1, dq1)));
+          skip = __int2float_rn(min(dt1, dq1) + 1);
+        } else {
+          // 2^23 + dt - 1 and 2^23 + dq - 1, exact below 2^23
+          const float mt =
+              __uint_as_float(0x4B000000u + static_cast<unsigned>(dt1));
+          const float mq =
+              __uint_as_float(0x4B000000u + static_cast<unsigned>(dq1));
+          gap = fabsf(__fsub_rn(mt, mq));
+          skip = __fsub_rn(fminf(mt, mq), kMagic - 1.0f);
+        }
+        const int key = __float_as_int(__fmaf_rn(
+            c.neg_skip_cost, skip, __fmaf_rn(c.neg_gap_cost, gap, f)));
+        if (ok && key > lk) {
           lk = key;
-          la = age;
-          ld = d;
+          lb = b;
+          if (keep_d) ld = d;
         }
       };
-      if constexpr (SLOTS > 0) {
-#pragma unroll
-        for (int j = 0; j < SLOTS; ++j)
-          if (j * 32 + lane < B) consider(bf[j], bd[j], bt[j], bq[j],
-                                          j * 32 + lane);
-      } else {
-        for (int sl = lane; sl < B; sl += 32) {
-          const int4 e = band[sl];
-          consider(__int_as_float(e.x), e.y, e.z, e.w, sl);
-        }
-      }
-      const int kmax = __reduce_max_sync(kFull, lk);
-      const int kbest = static_cast<int>(__reduce_min_sync(
-          kFull, lk == kmax ? static_cast<unsigned>(la)
-                            : static_cast<unsigned>(B)));
-      const int sbest = kbest + r >= B ? kbest + r - B : kbest + r;
-      const int dbest = __shfl_sync(kFull, ld, sbest & 31);
-      const float best = from_key(kmax);
-      float fi = __fadd_rn(c.anchor_score, fmaxf(best, 0.0f));
-      if (!vi) fi = kNeg;
-      const int di = best > 0.0f ? dbest : ti - qi;
-      if (lane == (r & 31)) {
-        if constexpr (SLOTS > 0) {
-#pragma unroll
-          for (int j = 0; j < SLOTS; ++j) {
-            if (j == (r >> 5)) {
-              bf[j] = fi;
-              bd[j] = di;
-              bt[j] = ti;
-              bq[j] = qi;
-            }
+      if constexpr (kFar) {
+        // set k holds anchor base + lane - 32 k: this lane wrote its f and
+        // diag0 k blocks ago (plain loads, not __ldg: this kernel writes
+        // them); before anchor 0, a sentinel
+        for (int k32 = 32 * (KR + H); k32 > 32 * KR; k32 -= 32) {
+          const int a = base + lane - k32;
+          float f = -inf;
+          int d = 0, st = kSent, sq = kSent;
+          if (a >= 0) {
+            const float fa = f_out[off + a];
+            f = fa > kNeg * 0.5f ? fa : -inf;
+            d = d_out[off + a];
+            st = __ldg(t + off + a);
+            sq = __ldg(q + off + a);
           }
-        } else {
-          band[r] = make_int4(__float_as_int(fi), di, ti, qi);
+          consider(f, st, sq, yb >= k32, k32, true, d);
         }
       }
+      // R1..R_{KR-2} lie wholly in the band (B > 32 KR - 30 where
+      // KR <= ceil((B - 1) / 32)); the wide instance tests every set
+#pragma unroll
+      for (int k = KR; k >= 1; --k)
+        consider(rf[k], rt[k], rq[k],
+                 (kWide || k >= KR - 1) ? yb >= 32 * k : true, 32 * k, false,
+                 0);
+      const int x0 = ~y & 31;
+      consider(f0, t0, q0, x0 < B - 1, x0 + 1 + y, KR == 0, out_d);
+      // Positive floats order as their bits do; a best that is not
+      // positive extends no chain, whatever its value
+      const int kmax = __reduce_max_sync(kFull, lk);
+      const unsigned bmax = __reduce_max_sync(
+          kFull, lk == kmax ? static_cast<unsigned>(lb - y) : 0u);
+      const float next_f = kmax > 0 ? __int_as_float(kmax) : 0.0f;
+      // the winner's diag0: from its lane (R0 alone, or a set read back),
+      // else from the diag0 ring
+      int next_d = 0;
+      if constexpr (KR > 0)
+        next_d = dring[(base + s - static_cast<int>(bmax)) & (kD - 1)];
+      if constexpr (KR == 0 || kFar) {
+        const int lane_d = __shfl_sync(kFull, ld, (s - static_cast<int>(bmax))
+                                                     & 31);
+        if (KR == 0 || bmax > 32u * KR + 31u) next_d = lane_d;
+      }
+      // On the chain, step i: as chain_dp_kernel
+      float best = older_f;
+      int dbest = older_d;
+      const float cand = candidate(new_f, t_i - new_t, q_i - new_q, c);
+      if (cand > best) {
+        best = cand;
+        dbest = new_d;
+      }
+      float fi = __fadd_rn(c.anchor_score, fmaxf(best, 0.0f));
+      if (!v_i) fi = kNeg;
+      const int di = best > 0.0f ? dbest : t_i - q_i;
+      if constexpr (KR > 0) dring[(base + s) & (kD - 1)] = di;
       if (lane == s) {
+        f0 = fi > kNeg * 0.5f ? fi : -inf;
+        t0 = t_i;
+        q0 = q_i;
         out_f = fi;
         out_d = di;
       }
+      new_f = fi;
+      new_d = di;
+      new_t = t_i;
+      new_q = q_i;
+      older_f = next_f;
+      older_d = next_d;
+      t_i = t_n;
+      q_i = q_n;
+      v_i = v_n;
+      t_n = tf;
+      q_n = qf;
+      v_n = vf;
     }
     if (lane < n) {
       f_out[off + base + lane] = out_f;
       d_out[off + base + lane] = out_d;
     }
+    // the block's end: R_k <- R_{k-1}
+#pragma unroll
+    for (int k = KR; k >= 2; --k) {
+      rf[k] = rf[k - 1];
+      rt[k] = rt[k - 1];
+      rq[k] = rq[k - 1];
+    }
+    if constexpr (KR >= 1) {
+      rf[1] = f0;
+      rt[1] = t0;
+      rq[1] = q0;
+    }
+    cur_t = nxt_t;
+    cur_q = nxt_q;
+    cur_v = nxt_v;
+  }
+}
+
+template <int KR, bool kFar, bool kWide>
+int launch_band(const int* q, const int* t, const unsigned char* valid,
+                float* f_out, int* d_out, int rows, int A, int B, int H,
+                const Costs& c, cudaStream_t stream) {
+  chain_dp_band_kernel<KR, kFar, kWide>
+      <<<(rows + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, 0,
+         stream>>>(q, t, valid, f_out, d_out, rows, A, B, H, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance with R1..R_kr in registers and no set read back
+template <int KR>
+int dispatch_band(int kr, const int* q, const int* t,
+                  const unsigned char* valid, float* f_out, int* d_out,
+                  int rows, int A, int B, const Costs& c,
+                  cudaStream_t stream) {
+  if (kr == KR)
+    return launch_band<KR, false, false>(q, t, valid, f_out, d_out, rows, A,
+                                         B, 0, c, stream);
+  if constexpr (KR < kMaxRegSets) {
+    return dispatch_band<KR + 1>(kr, q, t, valid, f_out, d_out, rows, A, B,
+                                 c, stream);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -369,31 +544,27 @@ extern "C" int chain_dp_rows(const int* q, const int* t,
 }
 
 // The same DP at band B = min(chain_band, A) >= 1 (any chain_band but 32):
-// B <= 64 keeps the band in registers (1 or 2 slots a lane); a wider
-// band needs `scratch`, (rows, B) int4 (16 bytes an entry), else it may be
-// null.  Launches on `stream`; returns cudaGetLastError() of the launch
-// (cudaErrorInvalidValue, without a launch, for B < 1 or a missing scratch).
+// R0 and ceil((B - 1) / 32) register sets up to B = 513, the sets past R16
+// read back from the outputs beyond that.  max_gap >= 2^23 takes the I2F
+// instance, which tests every set against the band.  Launches on `stream`;
+// returns cudaGetLastError() of the launch (cudaErrorInvalidValue, without
+// a launch, for B < 1).
 extern "C" int chain_dp_band_rows(const int* q, const int* t,
                                   const unsigned char* valid, float* f_out,
                                   int* d_out, int rows, int A, int B,
                                   int max_gap, float gap_cost,
                                   float skip_cost, float anchor_score,
-                                  void* scratch, void* stream) {
-  const int slots = (B + 31) / 32;
-  if (B < 1 || (slots > 2 && scratch == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+                                  void* stream) {
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int sets = B <= 33 ? 0 : (B - 2) / 32 + 1;    // ceil((B - 1) / 32)
+  const int far = max(sets - kMaxRegSets, 0);
   const Costs c{max_gap, -gap_cost, -skip_cost, anchor_score};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int4* band = static_cast<int4*>(scratch);
-  if (slots == 1)
-    chain_dp_band_kernel<1><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        q, t, valid, f_out, d_out, rows, A, B, c, band);
-  else if (slots == 2)
-    chain_dp_band_kernel<2><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        q, t, valid, f_out, d_out, rows, A, B, c, band);
-  else
-    chain_dp_band_kernel<0><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        q, t, valid, f_out, d_out, rows, A, B, c, band);
-  return static_cast<int>(cudaGetLastError());
+  if (max_gap >= kWideGap)
+    return launch_band<kMaxRegSets, true, true>(q, t, valid, f_out, d_out,
+                                                rows, A, B, far, c, s);
+  if (far > 0)
+    return launch_band<kMaxRegSets, true, false>(q, t, valid, f_out, d_out,
+                                                 rows, A, B, far, c, s);
+  return dispatch_band<0>(sets, q, t, valid, f_out, d_out, rows, A, B, c, s);
 }

@@ -124,7 +124,7 @@ def lib() -> ctypes.CDLL:
         handle.chain_dp_rows.argtypes = [P, P, P, P, P, I, I, I, F, F, F, P]
         handle.chain_dp_rows.restype = I
         handle.chain_dp_band_rows.argtypes = [P, P, P, P, P, I, I, I, I, F,
-                                              F, F, P, P]
+                                              F, F, P]
         handle.chain_dp_band_rows.restype = I
         handle.event_detect_rows.argtypes = [P, P, P] + [I] * 8 + [P]
         handle.event_detect_rows.restype = I

@@ -1,8 +1,9 @@
 """Wrapper of the banded chaining-DP kernels (csrc/chain_dp.cu) + their
 stage backend.  Both run one warp per read: the default ``chain_band == 32``
 launches the shipped kernel (one lane per band slot), any other band the
-band kernel at B = min(chain_band, A) (ceil(B / 32) slots a lane, in
-registers up to B = 64 and in a scratch row of 16 bytes a slot beyond).
+band kernel at B = min(chain_band, A) (sets of 32 slots, one slot a lane:
+in registers up to B = 513, the sets past those read back from the
+outputs).  Neither allocates anything but its outputs.
 """
 from __future__ import annotations
 
@@ -15,7 +16,6 @@ from repro_torch.core.config import MarsConfig
 from repro_torch.kernels.chain_dp.ref import chain_dp_ref
 
 BAND = 32             # the shipped kernel's band: one lane per slot
-REGISTER_BAND = 64    # the band kernel keeps up to 2 slots a lane in registers
 
 
 def chain_dp(q: torch.Tensor, t: torch.Tensor, valid: torch.Tensor,
@@ -58,14 +58,8 @@ def _chain_dp_kernel(q, t, valid, cfg: MarsConfig):
                                             K.stream_handle(q))
         else:
             # every earlier anchor of a read is in a band of A or wider
-            B = min(cfg.chain_band, A)
-            scratch = (torch.empty((n, B, 4), dtype=torch.int32,
-                                   device=q.device)
-                       if B > REGISTER_BAND else None)
             err = build.lib().chain_dp_band_rows(
-                *ptrs, B, *costs,
-                None if scratch is None else scratch.data_ptr(),
-                K.stream_handle(q))
+                *ptrs, min(cfg.chain_band, A), *costs, K.stream_handle(q))
         build.check(err, "chain_dp")
         K.LAUNCHES["chain_dp"] += 1
     return f, d

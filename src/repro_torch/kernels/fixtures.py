@@ -66,16 +66,19 @@ def tie_anchors(rng: np.random.Generator, rows: int, A: int,
     return q, t, rng.random((rows, A)) < p_valid
 
 
-def lane_tie_anchors(rows: int, A: int):
+def lane_tie_anchors(rows: int, A: int, lag: int = 0):
     """(q, t, valid) of shape (rows, A) where the two predecessors tying
     for an anchor's best candidate lie 32 anchors apart: blocks of
-    P1 = (T-7, Q-5), 31 invalid fillers at T-6, P2 = (T-5, Q-7) and the
-    anchor (T, Q).  P1 and P2 score the same and give the anchor one gap
-    and one skip each, with diagonals 4 apart; the older, P1, must win.
-    At a band of 32 < B, slots 32 apart share a lane of the band kernel,
-    so the tie is decided inside one lane."""
+    P1 = (T-7, Q-5), 31 invalid fillers at T-6, P2 = (T-5, Q-7), ``lag``
+    invalid fillers at T-2 and the anchor (T, Q).  P1 and P2 score the
+    same and give the anchor one gap and one skip each, with diagonals 4
+    apart; the older, P1, must win.  Slots 32 apart share a lane of the DP
+    kernels: at lag 0, P2 is the anchor's newest predecessor (the band
+    kernel merges it on its chain, P1 in the reduction ahead of it); at a
+    lag > 0 both are older slots of one lane, so the lane decides the tie.
+    The anchor is in reach of P1 once the band is 33 + lag or wider."""
     spread = 32
-    blk = spread + 2
+    blk = spread + 2 + lag
     t = np.empty((rows, A), np.int32)
     q = np.empty((rows, A), np.int32)
     v = np.ones((rows, A), bool)
@@ -89,8 +92,33 @@ def lane_tie_anchors(rows: int, A: int):
                 t[r, i], q[r, i], v[r, i] = T - 6, 10 * k, False
             elif k == spread:
                 t[r, i], q[r, i] = T - 5, Q - 7
+            elif k < blk - 1:
+                t[r, i], q[r, i], v[r, i] = T - 2, 10 * k, False
             else:
                 t[r, i], q[r, i] = T, Q
     order = np.lexsort((q, t), axis=-1)
     return (np.take_along_axis(q, order, -1), np.take_along_axis(t, order, -1),
             np.take_along_axis(v, order, -1))
+
+
+def band_edge_anchors(rows: int, A: int, B: int):
+    """(q, t, valid) of shape (rows, A) probing the band's far edge: groups
+    of a predecessor P = (T, Q), invalid fillers at T + 2 and an anchor
+    (T + 5, Q + 4) that P alone could extend, g anchors after P, where
+    row r takes g = B - 1, B, B + 1 by r % 3 (at least 1).  At g <= B the
+    anchor extends P's chain; at g = B + 1, P is out of the band."""
+    t = np.empty((rows, A), np.int32)
+    q = np.empty((rows, A), np.int32)
+    v = np.ones((rows, A), bool)
+    for r in range(rows):
+        g = max(1, B + r % 3 - 1)
+        for i in range(A):
+            b, k = divmod(i, g + 1)
+            T, Q = 1000 + 400 * b, 200 + 3 * r
+            if k == 0:
+                t[r, i], q[r, i] = T, Q
+            elif k < g:
+                t[r, i], q[r, i], v[r, i] = T + 2, 10 * k, False
+            else:
+                t[r, i], q[r, i] = T + 5, Q + 4
+    return q, t, v

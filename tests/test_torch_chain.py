@@ -242,14 +242,14 @@ def test_sort_anchors_equals_jax(width):
 
 
 # --------------------------------------------------------------------------- #
-# The split recurrence of the chain_dp kernel (csrc/chain_dp.cu)
+# The split recurrence of the chain_dp kernels (csrc/chain_dp.cu)
 # --------------------------------------------------------------------------- #
 INT_MIN = -(1 << 31)
 
 
 def _order_key(x: torch.Tensor) -> torch.Tensor:
-    """The kernel's int32 image of an f32: ordered as the floats are,
-    -0.0 taken as +0.0."""
+    """The shipped kernel's int32 image of an f32: ordered as the floats
+    are, -0.0 taken as +0.0."""
     i = x.view(torch.int32)
     i = torch.where(i == INT_MIN, torch.zeros_like(i), i)
     return i ^ ((i >> 31) & INT_MAX)
@@ -259,77 +259,177 @@ def _from_key(k: torch.Tensor) -> torch.Tensor:
     return (k ^ ((k >> 31) & INT_MAX)).view(torch.float32)
 
 
+def _band_sets(B: int) -> int:
+    """Sets of 32 slots the band kernel keeps beside R0 at band B: none up
+    to B = 33, else ceil((B - 1) / 32)."""
+    return 0 if B <= 33 else -(-(B - 1) // 32)
+
+
 def _split_dp(q, t, valid, cfg):
-    """A model of the kernel's step: the band's older slots (all but the
-    newest) reduced ahead through the int32 order image (the max, then the
-    least age rank among the slots that reach it), then the newest slot's
-    candidate merged by a STRICT ``>``.  Returns (f, diag0, ties): ties
-    counts the steps that extend a chain (best > 0) where slots with
-    different diag0 reach the best, split by whether the newest slot is one
-    of them."""
+    """A model of the DP kernels' evaluation order, lane by lane.  One warp
+    a read.  Set 0 (R0) holds in lane l the newest anchor j with
+    j % 32 == l, written in place at step j; set k > 0 holds what R0 held k
+    blocks of 32 anchors back (rotated in at each block's end; in the
+    lanes R0 has not overwritten yet in this block, set 1 repeats R0's
+    slot, with the same distance back, so either may win).  Step i's
+    chain merges the newest anchor's candidate by a STRICT ``>`` into the
+    older slots' best, which step i - 1 reduced beside its own chain: each
+    lane scans its sets oldest first keeping the first best key, the warp
+    takes the best key and, among the lanes reaching it, the slot farthest
+    back (the oldest).  A slot more than B - 1 anchors back from step
+    i - 1 is out of the band.
+
+    At chain_band 32 (the shipped kernel, one set) the key is the order
+    image, the out-of-band slot is capped at INT_MIN, and the winner's
+    lane hands over its diag0.  At any other band (the band kernel, at
+    B = min(chain_band, A)) a slot holds f as -inf where f <= NEG/2, a lane
+    takes a slot only where its candidate is in reach (dt, dq in
+    [1, max_gap]) and in the band, the key is the candidate's bits, only a
+    positive best counts, and the winner's diag0 comes from the warp's
+    ring of every anchor's diag0, by the winner's index (from the
+    winner's lane where R0 is the only set: the same value).  Returns
+    (f, diag0)."""
     N, A = q.shape
-    B = cfg.chain_band
-    lane = torch.arange(B)
+    shipped = cfg.chain_band == 32
+    B = 32 if shipped else min(cfg.chain_band, A)
+    S = 0 if shipped else _band_sets(B)
+    mg = cfg.max_gap
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)     # noqa: E731
     ngc, nsc, w = f32(-cfg.gap_cost), f32(-cfg.skip_cost), f32(
         cfg.anchor_score)
     neg, half_neg, zero = f32(chaining.NEG), f32(chaining.NEG / 2), f32(0.0)
-    bf = torch.full((N, B), chaining.NEG, dtype=torch.float32)
-    bd = torch.zeros((N, B), dtype=torch.int32)
-    bt = torch.full((N, B), chaining._SENT, dtype=torch.int32)
-    bq = torch.full((N, B), chaining._SENT, dtype=torch.int32)
+    inf = f32(float("inf"))
+
+    def candidate(bf, dt, dq):
+        """The candidate, and whether the slot is in reach: the band
+        kernel's gap and skip are those of 2**23 + dt - 1 and
+        2**23 + dq - 1, exact wherever in reach."""
+        ok = (dt > 0) & (dq > 0) & (dt <= mg) & (dq <= mg)
+        if shipped or mg >= 1 << 23:
+            gap = torch.abs(dt - dq).to(torch.float32)
+            skip = torch.minimum(dt, dq).to(torch.float32)
+        else:
+            m = torch.tensor(0x4AFFFFFF, dtype=torch.int32)
+            mt, mq = (m + dt).view(torch.float32), (m + dq).view(torch.float32)
+            gap = torch.abs(mt - mq)
+            skip = torch.minimum(mt, mq) - f32(8388607.0)
+        cand = chaining.fma_f32(chaining.fma_f32(bf, ngc, gap), nsc, skip)
+        return cand, ok
+
+    shape = (N, S + 1, 32)
+    bf = torch.full(shape, chaining.NEG if shipped else -float("inf"),
+                    dtype=torch.float32)
+    bd = torch.zeros(shape, dtype=torch.int32)
+    bt = torch.full(shape, chaining._SENT, dtype=torch.int32)
+    bq = torch.full(shape, chaining._SENT, dtype=torch.int32)
+    lane = torch.arange(32, dtype=torch.int32)
+    older_f = torch.full((N,), chaining.NEG if shipped else 0.0)
+    older_d = torch.zeros(N, dtype=torch.int32)
+    new_f = torch.full((N,), chaining.NEG)
+    new_d = torch.zeros(N, dtype=torch.int32)
+    new_t = torch.full((N,), chaining._SENT, dtype=torch.int32)
+    new_q = new_t.clone()
     f_out = torch.empty((N, A), dtype=torch.float32)
     d_out = torch.empty((N, A), dtype=torch.int32)
-    ties = {"older": 0, "newest": 0}
     for i in range(A):
-        ti, qi, vi = t[:, i:i + 1], q[:, i:i + 1], valid[:, i:i + 1]
-        dt, dq = ti - bt, qi - bq
-        ok = (dt > 0) & (dq > 0) & (dt <= cfg.max_gap) & (dq <= cfg.max_gap)
-        gap = torch.abs(dt - dq).to(torch.float32)
-        skip = torch.minimum(dt, dq).to(torch.float32)
-        cand = chaining.fma_f32(chaining.fma_f32(bf, ngc, gap), nsc, skip)
-        cand = torch.where(ok & (bf > half_neg), cand, neg)
-        k = (lane - i) % B                        # age rank, 0 = oldest
-        key = torch.where(k == B - 1, torch.full_like(k, INT_MIN, dtype=
-                                                      torch.int32),
-                          _order_key(cand))
-        kmax = key.max(1, keepdim=True).values
-        kbest = torch.where(key == kmax, k, B).min(1, keepdim=True).values
-        best = _from_key(kmax.contiguous())
-        dbest = torch.gather(bd, 1, (kbest + i) % B)
-        s = (i - 1) % B                           # anchor i - 1, rank B - 1
-        take = cand[:, s:s + 1] > best
-        best = torch.where(take, cand[:, s:s + 1], best)
-        dbest = torch.where(take, bd[:, s:s + 1], dbest)
-        reach = (cand == best) & (best > zero)
-        spread = reach.any(1) & (torch.where(reach, bd, INT_MAX).min(1).values
-                                 != torch.where(reach, bd, INT_MIN).max(1)
-                                 .values)
-        newest = reach[:, (i - 1) % B]
-        ties["older"] += int((spread & ~newest).sum())
-        ties["newest"] += int((spread & newest).sum())
+        s = i % 32
+        ti, qi, vi = t[:, i], q[:, i], valid[:, i]
+        if i + 1 < A:
+            # off the chain: step i + 1's older slots, before anchor i lands
+            tn, qn = t[:, i + 1, None], q[:, i + 1, None]
+            y = lane - s
+            yb = y + (B - 1)
+            x0 = ~y & 31
+            lk = torch.full((N, 32), INT_MIN, dtype=torch.int32)
+            ld = torch.zeros((N, 32), dtype=torch.int32)
+            lb = torch.zeros((N, 32), dtype=torch.int32)
+            for k in range(S, -1, -1):
+                if k == 0:
+                    in_band, back = x0 < B - 1, x0 + 1
+                else:
+                    in_band, back = yb >= 32 * k, 32 * k - y
+                cand, ok = candidate(bf[:, k], tn - bt[:, k], qn - bq[:, k])
+                if shipped:
+                    cand = torch.where(ok & (bf[:, k] > half_neg), cand, neg)
+                    key = torch.where(in_band, _order_key(cand), INT_MIN)
+                    take = key > lk
+                else:
+                    key = cand.view(torch.int32)
+                    take = ok & in_band & (key > lk)
+                lk = torch.where(take, key, lk)
+                ld = torch.where(take, bd[:, k], ld)
+                lb = torch.where(take, back, lb)
+            kmax = lk.max(1, keepdim=True).values
+            bmax = torch.where(lk == kmax, lb, 0).max(1).values
+            kmax = kmax[:, 0].contiguous()
+            if shipped:
+                next_f = _from_key(kmax)
+                next_d = ld.gather(1, ((s - bmax) & 31)[:, None].long())[:, 0]
+            else:
+                next_f = torch.where(kmax > 0, kmax.view(torch.float32), zero)
+                win = (i - bmax).clamp(0, A - 1).long()
+                next_d = d_out.gather(1, win[:, None])[:, 0]
+        # on the chain, step i
+        cand, ok = candidate(new_f, ti - new_t, qi - new_q)
+        cand = torch.where(ok & (new_f > half_neg), cand, neg)
+        take = cand > older_f
+        best = torch.where(take, cand, older_f)
+        dbest = torch.where(take, new_d, older_d)
         fi = torch.where(vi, w + torch.maximum(best, zero), neg)
         di = torch.where(best > zero, dbest, ti - qi)
-        f_out[:, i:i + 1], d_out[:, i:i + 1] = fi, di
-        s = i % B
-        bf[:, s:s + 1], bd[:, s:s + 1] = fi, di
-        bt[:, s:s + 1], bq[:, s:s + 1] = ti, qi
-    return f_out, d_out, ties
+        f_out[:, i], d_out[:, i] = fi, di
+        bf[:, 0, s] = fi if shipped else torch.where(fi > half_neg, fi, -inf)
+        bd[:, 0, s], bt[:, 0, s], bq[:, 0, s] = di, ti, qi
+        new_f, new_d, new_t, new_q = fi, di, ti, qi
+        if i + 1 < A:
+            older_f, older_d = next_f, next_d
+        if s == 31:                               # the block's end
+            for x in (bf, bd, bt, bq):
+                x[:, 1:] = x[:, :-1].clone()
+    return f_out, d_out
 
 
-@pytest.mark.parametrize("seed", [13, 14, 15])
-def test_split_dp_recurrence_equals_plain_and_jax(seed):
-    """The kernel's evaluation order (csrc/chain_dp.cu) on tie-heavy
-    anchors, bit-equal to chaining.chain_dp and to the JAX Pallas kernel in
-    interpret mode."""
-    from repro_torch.kernels.fixtures import tie_anchors
-    cfg_j, cfg_t = _cfgs(max_anchors=96)
-    q, t, v = tie_anchors(np.random.default_rng(seed), 4, 96,
-                          max_gap=cfg_t.max_gap)
-    v[2] = False                                  # an all-invalid row
+def _tie_kinds(q, t, valid, f, d, B, cfg):
+    """Steps that extend a chain (best > 0) where band slots with different
+    diag0 reach the best, by kind: the newest slot among them or not
+    (``newest``, ``older``), and two of them 32k anchors apart, in one lane
+    of the kernels (``lane``)."""
+    N, A = q.shape
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)     # noqa: E731
+    ngc, nsc = f32(-cfg.gap_cost), f32(-cfg.skip_cost)
+
+    def pad(x, v):
+        return torch.cat([torch.full((N, B), v, dtype=x.dtype), x], 1)
+    fp, dp = pad(f, chaining.NEG), pad(d, 0)
+    tp, qp = pad(t, chaining._SENT), pad(q, chaining._SENT)
+    kinds = {"older": 0, "newest": 0, "lane": 0}
+    for i in range(A):
+        fw, dw = fp[:, i:i + B], dp[:, i:i + B]
+        dt, dq = t[:, i:i + 1] - tp[:, i:i + B], q[:, i:i + 1] - qp[:, i:i + B]
+        ok = (dt > 0) & (dq > 0) & (dt <= cfg.max_gap) & (dq <= cfg.max_gap)
+        cand = chaining.fma_f32(chaining.fma_f32(
+            fw, ngc, torch.abs(dt - dq).to(torch.float32)), nsc,
+            torch.minimum(dt, dq).to(torch.float32))
+        cand = torch.where(ok & (fw > chaining.NEG / 2), cand, chaining.NEG)
+        best = cand.max(1, keepdim=True).values
+        reach = (cand == best) & (best > 0)
+        spread = reach.any(1) & (torch.where(reach, dw, INT_MAX).min(1).values
+                                 != torch.where(reach, dw, INT_MIN).max(1)
+                                 .values)
+        per_lane = torch.zeros((N, 32)).index_add_(
+            1, torch.arange(i - B, i) % 32, reach.to(torch.float32))
+        kinds["older"] += int((spread & ~reach[:, -1]).sum())
+        kinds["newest"] += int((spread & reach[:, -1]).sum())
+        kinds["lane"] += int((spread & (per_lane >= 2).any(1)).sum())
+    return kinds
+
+
+def _check_split_dp(q, t, v, A, B):
+    """The model at chain_band B, bit-equal to chaining.chain_dp and to the
+    JAX Pallas kernel in interpret mode; returns its tie kinds."""
+    cfg_j, cfg_t = _cfgs(max_anchors=A, chain_band=B)
     args = [torch.from_numpy(x) for x in (q, t, v)]
-    f, dg, ties = _split_dp(*args, cfg_t)
-    assert ties["older"] > 10 and ties["newest"] > 10, ties
+    f, dg = _split_dp(*args, cfg_t)
     pf, pd = chaining.chain_dp(*args, cfg_t)
     _eq(f.view(torch.int32), pf.view(torch.int32).numpy(), "f vs plain")
     _eq(dg, pd.numpy(), "diag0 vs plain")
@@ -337,3 +437,69 @@ def test_split_dp_recurrence_equals_plain_and_jax(seed):
                               cfg_j)
     _eq(f, wf, "f vs jax kernel")
     _eq(dg, wd, "diag0 vs jax kernel")
+    return _tie_kinds(*args, f, dg, B if B == 32 else min(B, A), cfg_t)
+
+
+@pytest.mark.parametrize("seed", [13, 14, 15])
+def test_split_dp_recurrence_equals_plain_and_jax(seed):
+    """The shipped kernel's evaluation order (chain_band 32) on tie-heavy
+    anchors, bit-equal to chaining.chain_dp and to the JAX Pallas kernel in
+    interpret mode."""
+    from repro_torch.kernels.fixtures import tie_anchors
+    q, t, v = tie_anchors(np.random.default_rng(seed), 4, 96, max_gap=128)
+    v[2] = False                                  # an all-invalid row
+    ties = _check_split_dp(q, t, v, 96, 32)
+    assert ties["older"] > 10 and ties["newest"] > 10, ties
+
+
+# (band, anchors): A just past B, and A < B, where the wrapper clamps the
+# band to A
+BAND_CASES = [(1, 40), (16, 20), (31, 33), (33, 70), (64, 70), (65, 97),
+              (128, 150), (300, 330), (33, 20), (64, 40), (300, 200)]
+
+
+@pytest.mark.parametrize("fixture", ["ties", "lane_ties"])
+@pytest.mark.parametrize("B,A", BAND_CASES)
+def test_split_dp_band_recurrence_equals_plain_and_jax(B, A, fixture):
+    """The band kernel's evaluation order (any chain_band but 32: R0 and the
+    rotated sets, the out-of-band slots, the split) on
+    tie-heavy anchors and on ties between slots of one lane, bit-equal to
+    chaining.chain_dp and to the JAX Pallas kernel in interpret mode."""
+    from repro_torch.kernels.fixtures import lane_tie_anchors, tie_anchors
+    if fixture == "ties":
+        q, t, v = tie_anchors(np.random.default_rng(B * A), 4, A,
+                              max_gap=128)
+        v[2] = False                              # an all-invalid row
+    else:
+        q, t, v = lane_tie_anchors(3, A)
+    ties = _check_split_dp(q, t, v, A, B)
+    band = min(B, A)
+    if fixture == "ties":
+        assert ties["newest"] > 0 or band < 2, ties
+        assert ties["older"] > 0 or band < 4, ties
+    elif band >= 33:
+        assert ties["lane"] > 0 and ties["newest"] > 0, ties
+
+
+@pytest.mark.parametrize("B,A", [(64, 70), (128, 150), (300, 330)])
+def test_split_dp_band_lane_ties_among_older_slots(B, A):
+    """Ties between two older slots of one lane (the newest slot out of
+    reach): the lane's oldest-first scan decides them."""
+    from repro_torch.kernels.fixtures import lane_tie_anchors
+    ties = _check_split_dp(*lane_tie_anchors(3, A, lag=3), A, B)
+    assert ties["lane"] > 0 and ties["newest"] == 0, ties
+
+
+@pytest.mark.parametrize("B,A", [(1, 40), (16, 60), (33, 120), (64, 200),
+                                 (300, 700)])
+def test_split_dp_band_edge(B, A):
+    """A predecessor B - 1, B and B + 1 anchors back, every slot between
+    invalid: the band's last slot extends the chain, the one past it
+    (still held in the kernel's sets) must not."""
+    from repro_torch.kernels.fixtures import band_edge_anchors
+    q, t, v = band_edge_anchors(3, A, B)
+    _check_split_dp(q, t, v, A, B)
+    f, _ = chaining.chain_dp(*(torch.from_numpy(x) for x in (q, t, v)),
+                             _cfgs(max_anchors=A, chain_band=B)[1])
+    ext = f > MarsConfig().anchor_score
+    assert ext[:2].any(1).all() and not ext[2].any()

@@ -208,37 +208,104 @@ def test_chain_dp_kernel_equals_plain_on_tie_rows(d5, A):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("case", ["D5 rows", "ties", "lane ties"])
-@pytest.mark.parametrize("B", [1, 16, 33, 64, 128, 300])
-def test_chain_dp_band_kernel_equals_plain(d5, B, case):
-    """Any chain_band but 32 launches the band kernel: D5's anchors at full
-    width, tie-heavy anchors, and anchors whose tying predecessors lie 32
-    apart (slots of one lane once B > 32); B = 128 and 300 keep the band
-    in the scratch row."""
+def _band_inputs(d5, case, A, B):
+    """(q, t, valid) on the card: D5's anchors at full width, tie-heavy
+    anchors, anchors whose tying predecessors lie 32 apart (the newest and
+    an older slot, or two older slots of one lane) and the band's far
+    edge."""
     import numpy as np
-    from repro_torch import kernels as K
     from repro_torch.core import chaining
-    from repro_torch.kernels.chain_dp import ops
-    from repro_torch.kernels.chain_dp.ref import chain_dp_ref
-    from repro_torch.kernels.fixtures import lane_tie_anchors, tie_anchors
-    cfg = d5[0].replace(chain_band=B)
+    from repro_torch.kernels import fixtures
     dev = d5[2].device
-    A = cfg.max_anchors
     if case == "D5 rows":
         rows = torch.sort(_rows(d5, survivors=False), dim=1).values[:64, :A]
-        sq, st, sv = (x.contiguous()
-                      for x in chaining.decode_anchor_keys(rows))
+        return tuple(x.contiguous()
+                     for x in chaining.decode_anchor_keys(rows))
+    if case == "ties":
+        q, t, v = fixtures.tie_anchors(np.random.default_rng(B), 64, A,
+                                       max_gap=d5[0].max_gap)
+    elif case == "lane ties":
+        q, t, v = fixtures.lane_tie_anchors(64, A)
+    elif case == "lane ties lag":
+        q, t, v = fixtures.lane_tie_anchors(64, A, lag=3)
     else:
-        q, t, v = (tie_anchors(np.random.default_rng(B), 64, A,
-                               max_gap=cfg.max_gap) if case == "ties"
-                   else lane_tie_anchors(64, A))
-        sq, st, sv = (torch.from_numpy(x).to(dev) for x in (q, t, v))
+        q, t, v = fixtures.band_edge_anchors(64, A, B)
+    return tuple(torch.from_numpy(x).to(dev) for x in (q, t, v))
+
+
+def _band_equal(cfg, q, t, v):
+    """One chain_dp launch, equal to the plain version."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.chain_dp import ops
+    from repro_torch.kernels.chain_dp.ref import chain_dp_ref
     n0 = K.LAUNCHES["chain_dp"]
-    got = ops.chain_dp(sq, st, sv, cfg)
-    want = chain_dp_ref(sq, st, sv, cfg)
+    got = ops.chain_dp(q, t, v, cfg)
+    want = chain_dp_ref(q, t, v, cfg)
     torch.cuda.synchronize()
     assert K.LAUNCHES["chain_dp"] == n0 + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", ["D5 rows", "ties", "lane ties",
+                                  "lane ties lag", "band edge"])
+@pytest.mark.parametrize("B", [1, 16, 31, 33, 64, 65, 96, 128, 300])
+def test_chain_dp_band_kernel_equals_plain(d5, B, case):
+    """Any chain_band but 32 launches the band kernel, once: R0 alone up to
+    B = 33, register sets beside it past that (2 at B = 64 and 65, 10 at
+    B = 300)."""
+    cfg = d5[0].replace(chain_band=B)
+    _band_equal(cfg, *_band_inputs(d5, case, cfg.max_anchors, B))
+
+
+@pytest.mark.parametrize("A", [1, 31, 33])
+@pytest.mark.parametrize("B", [64, 300])
+def test_chain_dp_band_kernel_short_reads(d5, B, A):
+    """Reads of fewer anchors than the band: the wrapper runs the band
+    kernel at B = A."""
+    cfg = d5[0].replace(chain_band=B)
+    _band_equal(cfg, *_band_inputs(d5, "ties", A, B))
+
+
+@pytest.mark.parametrize("B,A", [(600, 660), (1100, 1200), (15000, 15050)])
+def test_chain_dp_band_kernel_far_sets(d5, B, A):
+    """Past B = 513 the sets beyond R16 are read back from the outputs, at
+    any band (15,000 is past what a block's shared memory held)."""
+    cfg = d5[0].replace(chain_band=B, max_anchors=A)
+    for case in ("ties", "band edge"):
+        _band_equal(cfg, *_band_inputs(d5, case, A, B))
+
+
+@pytest.mark.parametrize("B", [16, 64])
+def test_chain_dp_band_kernel_wide_gap(d5, B):
+    """max_gap >= 2^23 takes the instance that converts with I2F."""
+    cfg = d5[0].replace(chain_band=B, max_gap=1 << 23)
+    _band_equal(cfg, *_band_inputs(d5, "ties", cfg.max_anchors, B))
+
+
+def test_chain_dp_band_routes(d5, monkeypatch):
+    """chain_band 32 launches chain_dp_rows (the shipped kernel), any other
+    band chain_dp_band_rows; a band under 1 raises before a launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.chain_dp import ops
+    lib, called = build.lib(), []
+
+    class Spy:
+        def __getattr__(self, name):
+            def call(*args):
+                called.append(name)
+                return getattr(lib, name)(*args)
+            return call
+    monkeypatch.setattr(build, "_LIB", Spy())
+    q, t, v = _band_inputs(d5, "ties", d5[0].max_anchors, 32)
+    for B, fn in ((32, "chain_dp_rows"), (33, "chain_dp_band_rows"),
+                  (31, "chain_dp_band_rows")):
+        called.clear()
+        _band_equal(d5[0].replace(chain_band=B), q, t, v)
+        assert called == [fn], (B, called)
+    called.clear()
+    with pytest.raises(ValueError, match="at least one predecessor"):
+        ops.chain_dp(q, t, v, d5[0].replace(chain_band=0))
+    assert called == []
 
 
 def _query_indices(d5):

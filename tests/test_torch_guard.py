@@ -140,6 +140,22 @@ def test_examples_and_scripts_default_to_cuda_and_raise_without_it(
             call()
 
 
+def test_bench_chain_band_needs_a_card(no_cuda):
+    """The band kernel's resource report reads the card's build or
+    nothing: without a card it raises, and it names the kernel's
+    instances by their register sets and whether they read sets back."""
+    from repro_torch.scripts import bench_chain_band as bench
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main([])
+    assert bench.instance("_ZN4anon20chain_dp_band_kernelILi16ELb1ELb0EEEv"
+                          ) == "KR=16 far"
+    assert bench.instance("_ZN4anon20chain_dp_band_kernelILi16ELb1ELb1EEEv"
+                          ) == "KR=16 far wide"
+    assert bench.instance("_ZN4anon20chain_dp_band_kernelILi2ELb0ELb0EEEv"
+                          ) == "KR=2"
+    assert bench.instance("_ZN4anon15chain_dp_kernelEv") is None
+
+
 def test_paper_evaluation_defaults_to_cuda_and_raises_without_it(
         no_cuda, tmp_path, monkeypatch):
     """The evaluation's entry points (records, the figure CLI, the serving
